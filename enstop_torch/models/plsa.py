@@ -23,8 +23,9 @@ class PLSA(TopicModelBase):
     a CUDA device that is missing raises, nothing falls back to the CPU).
     ``backend`` is ``"auto"``, ``"cuda"`` or ``"torch"`` and must match the
     device. ``precision``: ``"default"`` and ``"highest"`` run the fp32
-    kernel; ``"fast"`` is not ported yet and raises. ``e_step_thresh`` above
-    1e-30 needs the sparse path, which is not ported yet, and raises.
+    kernel; ``"fast"`` runs its bf16-responsibilities mode (the factors move
+    at bf16 rounding level, the log-likelihood stays fp32). ``e_step_thresh``
+    above 1e-30 needs the sparse path, which is not ported yet, and raises.
     """
 
     def __init__(

@@ -27,8 +27,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "em_dense": {
-        # x_bf16, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, stream
-        "enstop_em_dense": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+        # x_bf16, bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp,
+        # stream
+        "enstop_em_dense": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
     },
 }
 

@@ -6,7 +6,10 @@
 //   _make_ll_kernel     (log-likelihood sweep only)                -> COMPUTE_LL only
 // (and the grid-order variants _make_em_kernel_jo / _make_em_kernel_jo_resident /
 // _make_refit_kernel_jo_resident(bf16_r=False) of pallas_em_variants.py, which
-// compute the same functions).
+// compute the same functions), and, with the BF16R flag, the bf16-responsibilities
+// kernels of precision="fast" in enstop_tpu/ops/pallas_em_variants.py:
+//   _make_em_kernel_jo_resident(bf16_r=True)     -> WITH_A, WITH_B, BF16R
+//   _make_refit_kernel_jo_resident(bf16_r=True)  -> WITH_B, BF16R
 //
 // What is computed, for a zero-padded dense count matrix X (n, m) and factors
 // zd = P(z|d) (n, kp), wz = P(w|z) (kp, m), per-document weights w (n):
@@ -14,6 +17,13 @@
 //   A  = (w * zd)^T R          (kp, m)  -- the EM step only
 //   B  = R wz^T                (n, kp)  -- never weighted (the refit's B neither)
 //   ll = sum w * X * log S_safe          -- LL of the INPUT factors
+// BF16R (the TPU's _tile_math(bf16_r=True)): S stays fp32, then
+//   R  = bf16(bf16(X) / bf16(S_safe))  (the fp32 quotient rounded to bf16)
+//   A  = bf16(w * zd)^T R,  B = R bf16(wz)^T
+// with every bf16 operand widened to fp32, so each product is exact and the sums
+// stay fp32; the LL is unchanged. A float32 X is rounded to bf16 as well, as the
+// TPU kernel does. The rounding adds a few instructions per nonzero and removes
+// no bytes from the X stream that bounds the kernel.
 //
 // Route: the TPU kernel multiplies whole (Bd, Bw) tiles on the MXU. On Hopper
 // the dense products cost 3 * 2 * n * m * kp FLOP per step (68 GFLOP at the
@@ -81,8 +91,13 @@ struct XVec<__nv_bfloat16> {
   }
 };
 
+// x rounded to bf16 (round to nearest even) and widened back to fp32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // KT topics per lane: lane l holds topics l, l + 32, ..., l + 32 (KT - 1).
-template <typename XT, int KT, bool WITH_A, bool WITH_B, bool COMPUTE_LL>
+template <typename XT, int KT, bool WITH_A, bool WITH_B, bool COMPUTE_LL, bool BF16R>
 __global__ void __launch_bounds__(kWarps * 32)
 em_accumulate(const XT* __restrict__ X, const float* __restrict__ zd,
               const float* __restrict__ wzT, const float* __restrict__ w,
@@ -98,11 +113,12 @@ em_accumulate(const XT* __restrict__ X, const float* __restrict__ zd,
   for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < n;
        i += (int64_t)gridDim.x * kWarps) {
     const float wi = w[i];
-    float zd_r[KT], b_r[KT];
+    float zd_r[KT], zdw_r[KT], b_r[KT];
 #pragma unroll
     for (int t = 0; t < KT; ++t) {
       const int z = lane + 32 * t;
       zd_r[t] = z < kp ? zd[i * kp + z] : 0.f;
+      zdw_r[t] = BF16R ? bf16r(zd_r[t] * wi) : zd_r[t] * wi;  // A's left operand
       b_r[t] = 0.f;
     }
     const uint4* xrow = reinterpret_cast<const uint4*>(X + i * m);
@@ -153,13 +169,13 @@ em_accumulate(const XT* __restrict__ X, const float* __restrict__ zd,
         for (int off = 16; off > 0; off >>= 1)
           part += __shfl_xor_sync(kFull, part, off);
         const float s_safe = fmaxf(part, kTiny);
-        const float r = x / s_safe;
+        const float r = BF16R ? bf16r(bf16r(x) / bf16r(s_safe)) : x / s_safe;
         if (COMPUTE_LL && lane == 0) ll_acc += x * logf(s_safe) * wi;
 #pragma unroll
         for (int t = 0; t < KT; ++t) {
           const int z = lane + 32 * t;
-          if (WITH_A && z < kp) atomicAdd(AT + j * kp + z, zd_r[t] * wi * r);
-          if (WITH_B) b_r[t] = fmaf(r, wz_r[t], b_r[t]);
+          if (WITH_A && z < kp) atomicAdd(AT + j * kp + z, zdw_r[t] * r);
+          if (WITH_B) b_r[t] = fmaf(r, BF16R ? bf16r(wz_r[t]) : wz_r[t], b_r[t]);
         }
       }
     }
@@ -183,13 +199,13 @@ em_accumulate(const XT* __restrict__ X, const float* __restrict__ zd,
   }
 }
 
-template <typename XT, int KT, bool WITH_A, bool WITH_B, bool COMPUTE_LL>
+template <typename XT, int KT, bool WITH_A, bool WITH_B, bool COMPUTE_LL, bool BF16R>
 cudaError_t launch(const void* X, const void* zd, const void* wzT, const void* w,
                    void* AT, void* B, void* ll, int64_t n, int64_t m, int kp,
                    cudaStream_t stream) {
   const int64_t blocks = (n + kWarps - 1) / kWarps;
   const unsigned grid = (unsigned)(blocks < (1 << 30) ? blocks : (1 << 30));
-  em_accumulate<XT, KT, WITH_A, WITH_B, COMPUTE_LL><<<grid, kWarps * 32, 0, stream>>>(
+  em_accumulate<XT, KT, WITH_A, WITH_B, COMPUTE_LL, BF16R><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const XT*>(X), static_cast<const float*>(zd),
       static_cast<const float*>(wzT), static_cast<const float*>(w),
       static_cast<float*>(AT), static_cast<float*>(B), static_cast<float*>(ll),
@@ -197,54 +213,66 @@ cudaError_t launch(const void* X, const void* zd, const void* wzT, const void* w
   return cudaGetLastError();
 }
 
+// the modes with B: the EM step (A and B) and the refit (B only), LL on or off
+template <typename XT, int KT, bool BF16R>
+cudaError_t with_b_modes(int with_a, int compute_ll, const void* X, const void* zd,
+                         const void* wzT, const void* w, void* AT, void* B, void* ll,
+                         int64_t n, int64_t m, int kp, cudaStream_t s) {
+  if (with_a) {
+    return compute_ll
+        ? launch<XT, KT, true, true, true, BF16R>(X, zd, wzT, w, AT, B, ll, n, m, kp, s)
+        : launch<XT, KT, true, true, false, BF16R>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  }
+  return compute_ll
+      ? launch<XT, KT, false, true, true, BF16R>(X, zd, wzT, w, AT, B, ll, n, m, kp, s)
+      : launch<XT, KT, false, true, false, BF16R>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+}
+
 template <typename XT, int KT>
-cudaError_t by_mode(int with_a, int with_b, int compute_ll, const void* X,
+cudaError_t by_mode(int bf16_r, int with_a, int with_b, int compute_ll, const void* X,
                     const void* zd, const void* wzT, const void* w, void* AT,
                     void* B, void* ll, int64_t n, int64_t m, int kp,
                     cudaStream_t s) {
-  if (with_a && with_b) {
-    return compute_ll
-        ? launch<XT, KT, true, true, true>(X, zd, wzT, w, AT, B, ll, n, m, kp, s)
-        : launch<XT, KT, true, true, false>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  if (with_b) {
+    return bf16_r
+        ? with_b_modes<XT, KT, true>(with_a, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s)
+        : with_b_modes<XT, KT, false>(with_a, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
   }
-  if (!with_a && with_b) {
-    return compute_ll
-        ? launch<XT, KT, false, true, true>(X, zd, wzT, w, AT, B, ll, n, m, kp, s)
-        : launch<XT, KT, false, true, false>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
-  }
-  if (!with_a && !with_b && compute_ll) {
-    return launch<XT, KT, false, false, true>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  // the LL sweep has no bf16 mode: precision="fast" keeps the fp32 LL
+  if (!with_a && compute_ll && !bf16_r) {
+    return launch<XT, KT, false, false, true, false>(X, zd, wzT, w, AT, B, ll, n, m, kp, s);
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename XT>
-cudaError_t by_kp(int with_a, int with_b, int compute_ll, const void* X,
+cudaError_t by_kp(int bf16_r, int with_a, int with_b, int compute_ll, const void* X,
                   const void* zd, const void* wzT, const void* w, void* AT,
                   void* B, void* ll, int64_t n, int64_t m, int kp,
                   cudaStream_t s) {
-  if (kp <= 32) return by_mode<XT, 1>(with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
-  if (kp <= 64) return by_mode<XT, 2>(with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
-  if (kp <= 128) return by_mode<XT, 4>(with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
-  if (kp <= 256) return by_mode<XT, 8>(with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  if (kp <= 32) return by_mode<XT, 1>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  if (kp <= 64) return by_mode<XT, 2>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  if (kp <= 128) return by_mode<XT, 4>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
+  if (kp <= 256) return by_mode<XT, 8>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// One entry point for all three kernels. Returns cudaGetLastError() after the
+// One entry point for all the kernels. Returns cudaGetLastError() after the
 // launch (0 on success). The caller allocates and zeroes AT and ll, and checks
 // shapes, 16-byte alignment of X's rows and kp (at most 256).
-extern "C" int enstop_em_dense(int x_bf16, int with_a, int with_b, int compute_ll,
+extern "C" int enstop_em_dense(int x_bf16, int bf16_r, int with_a, int with_b,
+                               int compute_ll,
                                const void* X, const void* zd, const void* wzT,
                                const void* w, void* AT, void* B, void* ll,
                                long long n, long long m, int kp, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      x_bf16 ? by_kp<__nv_bfloat16>(with_a, with_b, compute_ll, X, zd, wzT, w,
-                                    AT, B, ll, n, m, kp, s)
-             : by_kp<float>(with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll,
-                            n, m, kp, s);
+      x_bf16 ? by_kp<__nv_bfloat16>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT,
+                                    w, AT, B, ll, n, m, kp, s)
+             : by_kp<float>(bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B,
+                            ll, n, m, kp, s);
   return (int)err;
 }

@@ -13,10 +13,14 @@ Normalising the factors after the accumulators is plain torch, as it sits
 outside the Pallas kernel in JAX too.
 
 ``precision``: ``"highest"`` and ``"default"`` are both served by the fp32
-kernel. ``"fast"`` (bf16 responsibilities) is not ported yet.
+kernel. ``"fast"`` runs the EM and refit steps through the kernel's
+bf16-responsibilities mode (``BF16R``; plain version ``em.*_bf16r``), the
+counterpart of the TPU's ``jo_res_bf16r`` layout; its log-likelihood sweep is
+the fp32 LL kernel, as in JAX.
 
-``LAUNCHES`` counts kernel launches by kernel; it is raised only where a
-kernel is launched.
+``LAUNCHES`` counts kernel launches by kernel and mode (``em_bf16r`` and
+``refit_bf16r`` are the fast modes); it is raised only where a kernel is
+launched.
 """
 
 from __future__ import annotations
@@ -29,17 +33,14 @@ from ._build import library
 _TINY = em_ops._TINY
 MAX_KP = 256  # the kernel holds at most 8 topics per lane in registers
 
-LAUNCHES = {"em": 0, "refit": 0, "ll": 0}
+LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0}
 
 
 def _check_precision(precision):
-    if precision == "fast":
-        raise NotImplementedError(
-            "precision='fast' (bf16 responsibilities) has no CUDA kernel yet; "
-            "use 'default' or 'highest'"
-        )
-    if precision not in ("default", "highest"):
+    """True for ``"fast"`` (bf16 responsibilities), False for the fp32 modes."""
+    if precision not in ("default", "highest", "fast"):
         raise ValueError(f"Unrecognized precision {precision!r}")
+    return precision == "fast"
 
 
 def _on_cpu(X):
@@ -59,7 +60,7 @@ def _weights(sample_weight, n, device):
     return sample_weight.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll):
+def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll, bf16_r=False):
     """Validate, allocate and launch one kernel; returns ``(AT, B, ll)``."""
     if X.dim() != 2 or zd.dim() != 2 or wz.dim() != 2:
         raise ValueError("X, p_z_given_d and p_w_given_z must be 2-D")
@@ -94,7 +95,8 @@ def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll):
     fn = library("em_dense").enstop_em_dense
     with torch.cuda.device(dev):
         err = fn(
-            int(X.dtype == torch.bfloat16), int(with_a), int(with_b), int(compute_ll),
+            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_a), int(with_b),
+            int(compute_ll),
             X.data_ptr(), zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
             None if AT is None else AT.data_ptr(),
             None if B is None else B.data_ptr(),
@@ -102,7 +104,7 @@ def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll):
         )
     if err != 0:
         raise RuntimeError(f"em_dense kernel launch failed: cudaError {err}")
-    LAUNCHES[kind] += 1
+    LAUNCHES[kind + "_bf16r" if bf16_r else kind] += 1
     return AT, B, ll[0]
 
 
@@ -110,12 +112,13 @@ def em_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
                           compute_ll=True, precision="default"):
     """Raw ``(A, B, ll)`` accumulators before normalisation. With
     ``compute_ll=False`` the returned ``ll`` is 0."""
-    _check_precision(precision)
+    bf16_r = _check_precision(precision)
     if _on_cpu(X):
-        A, B, ll = em_ops.em_accumulators_dense(X, p_z_given_d, p_w_given_z, sample_weight)
+        plain = em_ops.em_accumulators_bf16r if bf16_r else em_ops.em_accumulators_dense
+        A, B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return A, B, ll if compute_ll else torch.zeros_like(ll)
     AT, B, ll = _launch("em", X, p_z_given_d, p_w_given_z, sample_weight,
-                        True, True, compute_ll)
+                        True, True, compute_ll, bf16_r)
     return AT.t(), B, ll
 
 
@@ -136,13 +139,13 @@ def refit_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
                              compute_ll=True, precision="default"):
     """Raw frozen-topics ``(B, ll)``: ``B`` unweighted, the LL weighted. With
     ``compute_ll=False`` the returned ``ll`` is 0."""
-    _check_precision(precision)
+    bf16_r = _check_precision(precision)
     if _on_cpu(X):
-        B, ll = em_ops.refit_accumulators_dense(X, p_z_given_d, p_w_given_z,
-                                                sample_weight)
+        plain = em_ops.refit_accumulators_bf16r if bf16_r else em_ops.refit_accumulators_dense
+        B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return B, ll if compute_ll else torch.zeros_like(ll)
     _, B, ll = _launch("refit", X, p_z_given_d, p_w_given_z, sample_weight,
-                       False, True, compute_ll)
+                       False, True, compute_ll, bf16_r)
     return B, ll
 
 
@@ -158,7 +161,8 @@ def refit_step_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
 
 def log_likelihood_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
                          precision="default"):
-    """``sum w * X * log max(P(z|d) P(w|z), 1e-30)``."""
+    """``sum w * X * log max(P(z|d) P(w|z), 1e-30)``; float32 at every
+    precision."""
     _check_precision(precision)
     if _on_cpu(X):
         return em_ops.log_likelihood_dense(X, p_z_given_d, p_w_given_z, sample_weight)

@@ -96,11 +96,15 @@ def kernel_steps(precision="default"):
     return {"em": em, "em_ll": em_ll, "refit": refit, "ll": ll}
 
 
-def plain_steps():
+def plain_steps(precision="default"):
     """The same step functions from the plain PyTorch ops on any device: the
-    reference the kernels are held against."""
-    return {"em": em_ops.em_step_dense, "em_ll": em_ops.em_step_dense,
-            "refit": em_ops.refit_step_dense, "ll": em_ops.log_likelihood_dense}
+    reference the kernels are held against (the bf16-responsibilities steps
+    at ``"fast"``)."""
+    if cuda_em._check_precision(precision):
+        em, refit = em_ops.em_step_bf16r, em_ops.refit_step_bf16r
+    else:
+        em, refit = em_ops.em_step_dense, em_ops.refit_step_dense
+    return {"em": em, "em_ll": em, "refit": refit, "ll": em_ops.log_likelihood_dense}
 
 
 def fit_padded(Xd, zd, wz, w, n_iter, n_iter_per_test, tolerance, steps):
@@ -242,7 +246,7 @@ def plsa_fit(
     ``wall_time_s`` and ``nnz_k_updates_per_s``.
 
     ``precision``: ``"default"`` and ``"highest"`` both run the fp32 kernel;
-    ``"fast"`` raises ``NotImplementedError``.
+    ``"fast"`` runs its bf16-responsibilities mode (the LL sweep stays fp32).
     """
     rng = check_random_state(random_state)
     steps = kernel_steps(precision)

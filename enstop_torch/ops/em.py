@@ -15,6 +15,14 @@ These functions run on any device. On the CPU they are the port's fit path;
 on the GPU they are the reference the CUDA kernels of :mod:`.cuda_em` are
 checked against. Zero padding of ``X`` and the factors is absorbing.
 
+``precision="fast"`` has its own accumulators (``*_bf16r``), the
+counterpart of ``_tile_math(bf16_r=True)`` in
+``enstop_tpu/ops/pallas_em_variants.py``: ``S`` stays float32, the ratio is
+``R = bf16(bf16(X) / bf16(max(S, 1e-30)))``, and the products take
+``bf16(w * P(z|d))`` and ``bf16(P(w|z))`` with float32 accumulation (every
+bf16 operand is widened to float32 first, so a bf16 product is exact and the
+sums stay float32 on any device). The log-likelihood stays float32.
+
 ``CALLS`` counts calls of each accumulator function, so a run can show which
 path it took.
 """
@@ -25,7 +33,7 @@ import torch
 
 _TINY = 1e-30  # guard for S -> 0; stays in the f32 normal range
 
-CALLS = {"em": 0, "refit": 0, "ll": 0}
+CALLS = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0}
 
 
 def _rownorm(a):
@@ -89,3 +97,49 @@ def log_likelihood_dense(X, p_z_given_d, p_w_given_z, sample_weight=None):
     nz = Xf > 0
     Ssafe = (p_z_given_d @ p_w_given_z).clamp_min(_TINY)
     return _weighted_ll(Xf, nz, Ssafe, sample_weight)
+
+
+def _bf16(a):
+    """Round to bfloat16 and widen back to float32."""
+    return a.to(torch.bfloat16).float()
+
+
+def _responsibilities_bf16r(X, p_z_given_d, p_w_given_z):
+    Xf = X.float()
+    Ssafe = (p_z_given_d @ p_w_given_z).clamp_min(_TINY)
+    # X = 0 gives R = 0 exactly (bf16(S_safe) >= 1e-30 > 0), so no mask
+    R = _bf16(_bf16(Xf) / _bf16(Ssafe))
+    return Xf, Xf > 0, Ssafe, R
+
+
+def em_accumulators_bf16r(X, p_z_given_d, p_w_given_z, sample_weight=None):
+    """:func:`em_accumulators_dense` with bf16 responsibilities
+    (``precision="fast"``): ``A`` weighted, ``B`` never, the LL float32."""
+    CALLS["em_bf16r"] += 1
+    Xf, nz, Ssafe, R = _responsibilities_bf16r(X, p_z_given_d, p_w_given_z)
+    ll = _weighted_ll(Xf, nz, Ssafe, sample_weight)
+    zd_w = p_z_given_d if sample_weight is None else (
+        p_z_given_d * sample_weight.float()[:, None])
+    A = _bf16(zd_w).t() @ R
+    B = R @ _bf16(p_w_given_z).t()
+    return A, B, ll
+
+
+def em_step_bf16r(X, p_z_given_d, p_w_given_z, sample_weight=None):
+    """One full EM step at ``precision="fast"``."""
+    A, B, ll = em_accumulators_bf16r(X, p_z_given_d, p_w_given_z, sample_weight)
+    return _rownorm(p_z_given_d * B), _rownorm(p_w_given_z * A), ll
+
+
+def refit_accumulators_bf16r(X, p_z_given_d, p_w_given_z, sample_weight=None):
+    """:func:`refit_accumulators_dense` with bf16 responsibilities; the weight
+    enters the LL only."""
+    CALLS["refit_bf16r"] += 1
+    Xf, nz, Ssafe, R = _responsibilities_bf16r(X, p_z_given_d, p_w_given_z)
+    return R @ _bf16(p_w_given_z).t(), _weighted_ll(Xf, nz, Ssafe, sample_weight)
+
+
+def refit_step_bf16r(X, p_z_given_d, p_w_given_z, sample_weight=None):
+    """One frozen-topics step at ``precision="fast"``."""
+    B, ll = refit_accumulators_bf16r(X, p_z_given_d, p_w_given_z, sample_weight)
+    return _rownorm(p_z_given_d * B), ll

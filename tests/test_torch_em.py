@@ -145,11 +145,19 @@ def test_fused_step_and_ll_on_cpu_match_pallas_interpret(dtypes, weighted):
 
 
 def test_wrappers_refuse_fast_and_unknown_devices():
+    """``precision="fast"`` is served now (on a CPU tensor by the plain bf16r
+    ops, held against JAX in ``test_torch_fast.py``); an unknown precision and
+    an unknown device still raise."""
     X, zd, wz, w = _torch(*_problem(4, False), torch.float32)
-    with pytest.raises(NotImplementedError):
-        cuda_em.em_step_fused(X, zd, wz, precision="fast")
-    with pytest.raises(NotImplementedError):
-        cuda_em.refit_step_fused(X, zd, wz, precision="fast")
+    calls = dict(port_em.CALLS)
+    zd_f, wz_f, _ = cuda_em.em_step_fused(X, zd, wz, precision="fast")
+    zr_f, _ = cuda_em.refit_step_fused(X, zd, wz, precision="fast")
+    assert port_em.CALLS["em_bf16r"] == calls["em_bf16r"] + 1
+    assert port_em.CALLS["refit_bf16r"] == calls["refit_bf16r"] + 1
+    for got, ref in ((zd_f, port_em.em_step_bf16r(X, zd, wz)[0]),
+                     (wz_f, port_em.em_step_bf16r(X, zd, wz)[1]),
+                     (zr_f, port_em.refit_step_bf16r(X, zd, wz)[0])):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     with pytest.raises(ValueError):
         cuda_em.log_likelihood_fused(X, zd, wz, precision="bogus")
     # a tensor that is neither on the CPU nor on a CUDA device raises; it never

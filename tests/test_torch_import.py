@@ -17,6 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_and_sklearn_out():
     code = (
         "import sys, enstop_torch, enstop_torch.convert, enstop_torch.synthetic\n"
+        "import enstop_torch.cluster, enstop_torch.models.ensemble\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'enstop_tpu', 'sklearn'))\n"
         "print(bad)\n"
@@ -37,10 +38,11 @@ def test_no_port_source_imports_jax():
 
 
 def test_exports():
-    for name in ("PLSA", "PreparedCounts", "prepare_counts", "plsa_fit", "plsa_refit",
+    for name in ("PLSA", "EnsembleTopics", "ensemble_fit", "ensemble_of_topics",
+                 "PreparedCounts", "prepare_counts", "plsa_fit", "plsa_refit",
                  "normalize", "standardize_input", "LAUNCHES"):
         assert hasattr(enstop_torch, name)
-    assert set(enstop_torch.LAUNCHES) == {"em", "refit", "ll"}
+    assert set(enstop_torch.LAUNCHES) == {"em", "refit", "ll", "em_bf16r", "refit_bf16r"}
 
 
 def test_default_cuda_device_raises_without_a_card():
@@ -53,3 +55,7 @@ def test_default_cuda_device_raises_without_a_card():
         model.fit(X)
     with pytest.raises(RuntimeError, match="cuda"):
         enstop_torch.prepare_counts(X)
+    ensemble = enstop_torch.EnsembleTopics(n_components=3)
+    assert ensemble.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        ensemble.fit(X)

@@ -181,8 +181,18 @@ def test_pad_state_and_warm_start():
     dict(e_step_thresh=1e-16),
 ], ids=["fast", "sparse", "nndsvd", "nmf", "e_step_thresh"])
 def test_unported_options_raise(kwargs):
+    """The options still to port raise; ``precision="fast"``, ported since,
+    fits and transforms (held against JAX in ``test_torch_fast.py``)."""
+    model = enstop_torch.PLSA(n_components=3, device="cpu", **kwargs)
+    if kwargs == dict(precision="fast"):
+        X = _counts()
+        emb = model.fit_transform(X)
+        assert emb.shape == (X.shape[0], 3) and np.all(np.isfinite(emb))
+        np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)
+        assert np.all(np.isfinite(model.transform(X[:10])))
+        return
     with pytest.raises(NotImplementedError):
-        enstop_torch.PLSA(n_components=3, device="cpu", **kwargs).fit(_counts())
+        model.fit(_counts())
 
 
 def test_backend_must_match_device():
