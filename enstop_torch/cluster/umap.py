@@ -27,6 +27,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils import check_random_state
 
@@ -188,11 +189,28 @@ def _optimize_layout(emb, W, n_epochs, a, b, rng, negative_sample_rate=5,
     return emb
 
 
+def _segments(index, n, device):
+    """The edges grouped by ``index`` in a fixed (stable) order, as
+    ``(edge ids, group offsets)`` for :func:`_ordered_add`."""
+    order = np.argsort(index, kind="stable")
+    offsets = np.searchsorted(index[order], np.arange(n))
+    return (torch.from_numpy(order.astype(np.int64)).to(device),
+            torch.from_numpy(offsets.astype(np.int64)).to(device))
+
+
+def _ordered_add(x, segments, g):
+    """``x[index[e]] += g[e]`` for every edge e, each point's terms summed in
+    one fixed order (an ``index_add_`` on CUDA sums with atomics, in an order
+    that changes from run to run)."""
+    x.add_(F.embedding_bag(segments[0], g, segments[1], mode="sum"))
+
+
 def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
                             negative_sample_rate=5, initial_alpha=1.0):
     """The same SGD as :func:`_optimize_layout` as a float32 epoch loop on
     ``device`` (the JAX package's ``lax.fori_loop`` program): the same update
-    schedule and gradient math, ``index_add_`` for the scatter-adds, and the
+    schedule and gradient math, the scatter-adds as fixed-order segment sums
+    (:func:`_ordered_add`, so a layout is the same from run to run), and the
     negative samples from a ``torch.Generator`` on the device seeded with
     ``seed``. That random stream differs from the numpy path's and from the
     JAX package's, which is equivalent for clustering purposes, like the numpy
@@ -206,6 +224,7 @@ def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
         (weights.max() / np.maximum(weights, 1e-12)).astype(np.float32)).to(dev)
     h = torch.from_numpy(heads.astype(np.int64)).to(dev)
     t = torch.from_numpy(tails.astype(np.int64)).to(dev)
+    by_head, by_tail = (_segments(i, emb.shape[0], dev) for i in (heads, tails))
     x = torch.from_numpy(np.asarray(emb, np.float32)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed) % (2 ** 31 - 1))
@@ -219,15 +238,15 @@ def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
         dsq = (d * d).sum(1)
         gc = torch.where(dsq > 0, (-2.0 * a * b * dsq ** (b - 1.0)) / (a * dsq ** b + 1.0), 0.0)
         g = (gc[:, None] * d).clamp(-4.0, 4.0) * active[:, None]
-        x.index_add_(0, h, alpha * g)
-        x.index_add_(0, t, -alpha * g)
+        _ordered_add(x, by_head, alpha * g)
+        _ordered_add(x, by_tail, -alpha * g)
         for _ in range(negative_sample_rate):
             neg = torch.randint(0, n, (h.numel(),), generator=gen, device=dev)
             d = x[h] - x[neg]
             dsq = (d * d).sum(1)
             rep = torch.where(dsq > 0, (2.0 * b) / ((0.001 + dsq) * (a * dsq ** b + 1.0)), 0.0)
             g = (rep[:, None] * d).clamp(-4.0, 4.0) * ((neg != h) & active)[:, None]
-            x.index_add_(0, h, alpha * g)
+            _ordered_add(x, by_head, alpha * g)
         next_epoch = torch.where(active, next_epoch + eps, next_epoch)
     return x.cpu().numpy().astype(np.float64)
 

@@ -15,10 +15,14 @@ materialises, so no run copies the data. Each run is the ordinary fit loop
 topic stack stays on the device for the distance matrix and the merge; the
 UMAP layout runs on the device too, HDBSCAN on the host.
 
-Not ported yet, and raising ``NotImplementedError``: ``model="nmf"``,
-``parallelism="sharded"`` (the device mesh), ``backend="sparse"`` and a refit
-``e_step_thresh`` above 1e-30 (``ensemble_fit``'s own default of 1e-16; the
-estimator passes 1e-32).
+With ``backend="sparse"`` (or a :class:`~enstop_torch.ops.sell.PreparedSell`)
+the runs share one copy of the O(nnz) sparse layout instead and each is a
+sparse fit; the final refit runs on the same layout with the ensemble's
+``e_step_thresh`` (``ensemble_fit``'s own default of 1e-16 applies exactly
+there; the estimator passes 1e-32).
+
+Not ported yet, and raising ``NotImplementedError``: ``model="nmf"`` and
+``parallelism="sharded"`` (the device mesh).
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ from ..cluster.hdbscan import (HDBSCAN, compute_stability, condense_tree,
 from ..cluster.umap import umap_embed
 from ..ops import cuda_em
 from ..ops.data import K_MULTIPLE, pad_factors, pad_vector, round_up
-from ..ops.driver import (THRESH_MATERIAL, PreparedCounts, fit_padded, kernel_steps,
+from ..ops.driver import (PreparedCounts, _warn_fast_unsupported, fit_padded, kernel_steps,
                           plsa_fit, plsa_refit, prepare_counts, resolve_device)
 from ..ops.init import plsa_init
+from ..ops.sell import PreparedSell, prepare_sell, sell_fit
 from ..utils import _check_sample_weight, check_random_state
 from .base import TopicModelBase
 
@@ -115,12 +120,19 @@ def plsa_topics(X, k, **kwargs):
 # ensemble fan-out
 # ---------------------------------------------------------------------------
 
-def resolve_parallelism(parallelism, model="plsa"):
+def resolve_parallelism(parallelism, model="plsa", backend="auto", prepared=None):
     """``"auto"`` is ``"weights"`` for pLSA (one device), ``"resample"``
-    otherwise; ``"sharded"`` needs the device mesh, which is not ported yet.
-    Other names pass through."""
+    otherwise; ``"sharded"`` has no sparse variant (a ``ValueError`` for
+    ``backend="sparse"`` or a :class:`PreparedSell`) and needs the device
+    mesh, which is not ported yet. Other names pass through."""
     if parallelism == "auto":
         return "weights" if model == "plsa" else "resample"
+    if parallelism == "sharded" and model == "plsa" and (
+            backend == "sparse" or isinstance(prepared, PreparedSell)):
+        raise ValueError(
+            "parallelism='sharded' has no sparse variant: the weights fan-out on the "
+            "sparse layout is the sparse program; use parallelism='weights' or 'auto' "
+            "with backend='sparse'")
     if parallelism == "sharded":
         raise NotImplementedError(
             "parallelism='sharded' (the runs sharded over a device mesh) is not "
@@ -147,25 +159,29 @@ def _device_init(n_pad, kp, n, k, m_pad, m, seed, device):
 
 
 def bootstrap_inputs(prepared, k, n_runs, rng, bootstrap=True, init="random", X=None):
-    """Yield each run's padded ``(P(z|d), P(w|z), document weights)`` on the
-    device of ``prepared``, drawing from ``rng`` in the JAX package's order:
-    one ``randint`` for the init seed when ``init="random"`` (run ``i`` then
-    seeds its device generator with ``seed * 2**20 + i``), then per run the
-    init (a factor tuple draws nothing) and one ``multinomial(n, 1/n)``."""
-    Xdev = prepared.device_array
+    """Yield each run's ``(P(z|d), P(w|z), document weights)`` on the device of
+    ``prepared``: padded for a :class:`PreparedCounts`, at the layout's own
+    shapes (n, k) and (k, m) for a :class:`PreparedSell`. Draws from ``rng``
+    in the JAX package's order: one ``randint`` for the init seed when
+    ``init="random"`` (run ``i`` then seeds its device generator with
+    ``seed * 2**20 + i``), then per run the init (a factor tuple draws
+    nothing) and one ``multinomial(n, 1/n)``."""
     n, m = prepared.n, prepared.m
-    n_pad, m_pad = Xdev.shape
-    dev = Xdev.device
+    sparse = isinstance(prepared, PreparedSell)
+    if sparse:
+        n_pad, m_pad, kp, dev = n, m, k, prepared.device
+    else:
+        (n_pad, m_pad), dev = prepared.device_array.shape, prepared.device_array.device
+        kp = round_up(k, K_MULTIPLE)
     uniform = np.full(n, 1.0 / n)
     base_seed = int(rng.randint(np.iinfo(np.int32).max)) if init == "random" else None
     for i in range(n_runs):
         if base_seed is not None:
-            zd, wz = _device_init(n_pad, round_up(k, K_MULTIPLE), n, k, m_pad, m,
-                                  base_seed * (1 << 20) + i, dev)
+            zd, wz = _device_init(n_pad, kp, n, k, m_pad, m, base_seed * (1 << 20) + i, dev)
         else:
             pzd0, pwz0 = plsa_init(prepared if X is None else X, k, init=init, rng=rng)
-            zd, wz = (torch.from_numpy(a).to(dev)
-                      for a in pad_factors(pzd0, pwz0, n_pad, m_pad))
+            factors = (pzd0, pwz0) if sparse else pad_factors(pzd0, pwz0, n_pad, m_pad)
+            zd, wz = (torch.from_numpy(a).to(dev) for a in factors)
         counts = (rng.multinomial(n, uniform) if bootstrap else np.ones(n)).astype(np.float32)
         yield zd, wz, torch.from_numpy(pad_vector(counts, n_pad)).to(dev)
 
@@ -174,17 +190,37 @@ def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
                                n_iter=100, n_iter_per_test=10, tolerance=0.001,
                                backend="auto", precision="default", x_dtype="auto",
                                prepared=None, device="cuda"):
-    """``n_runs`` bootstrap fits against ONE staged copy of X, each bootstrap
-    as document weights; the ``(n_runs * k, m)`` stack stays on the device."""
-    if prepared is None:
+    """``n_runs`` bootstrap fits against ONE staged copy of X (dense, or the
+    sparse layout for ``backend="sparse"``), each bootstrap as document
+    weights; the ``(n_runs * k, m)`` stack stays on the device."""
+    if prepared is None and backend == "sparse":
+        prepared = prepare_sell(X, standardize=False, device=device)
+    elif prepared is None:
         prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype, standardize=False,
                                   device=device)
-    steps = kernel_steps(precision)
+    if isinstance(prepared, PreparedSell):
+        if precision == "fast":
+            _warn_fast_unsupported("sparse ensemble fan-out")
+        return _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap, init,
+                                          n_iter, n_iter_per_test, tolerance)
+    steps = kernel_steps(precision, prepared.word)
     topics = []
     for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
         res = fit_padded(prepared.device_array, zd, wz, w, n_iter, n_iter_per_test,
                          tolerance, steps)
         topics.append(res.state[1][:k, :prepared.m])
+    return torch.cat(topics, dim=0)
+
+
+def _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap=True, init="random",
+                               n_iter=100, n_iter_per_test=10, tolerance=0.001):
+    """The bootstrap fan-out on the O(nnz) layout: each run a sparse fit with
+    multinomial document weights, from a device init at the layout's own
+    shapes. As in the JAX package, the runs take no ``e_step_thresh``."""
+    topics = []
+    for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
+        topics.append(sell_fit(prepared, zd, wz, sample_weight=w, n_iter=n_iter,
+                               n_iter_per_test=n_iter_per_test, tolerance=tolerance)[1])
     return torch.cat(topics, dim=0)
 
 
@@ -221,7 +257,8 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
         raise ValueError(f"Unrecognized parallelism {parallelism!r}; should be one of "
                          f"{tuple(sorted(PARALLELISM))}")
     _check_model(model)
-    parallelism = resolve_parallelism(parallelism, model)
+    parallelism = resolve_parallelism(parallelism, model, kwargs.get("backend", "auto"),
+                                      kwargs.get("prepared"))
     device = kwargs.get("device", "cuda")
     rng = check_random_state(kwargs.get("random_state", None))
     if parallelism == "weights":
@@ -421,35 +458,38 @@ def ensemble_fit(
     rounding level; the topic clustering is built to be stable under such
     run-to-run jitter. ``beta_loss``, ``alpha`` and ``solver`` are the NMF
     runs' parameters, kept for the JAX package's signature; ``model="nmf"``
-    raises until NMF is ported. ``X`` may be a count matrix or a
-    :class:`~enstop_torch.ops.driver.PreparedCounts` (then its device wins
-    over ``device``).
+    raises until NMF is ported. ``X`` may be a count matrix, a
+    :class:`~enstop_torch.ops.driver.PreparedCounts` or a
+    :class:`~enstop_torch.ops.sell.PreparedSell` (then its device wins over
+    ``device``). ``backend="sparse"`` stages the sparse layout; on it the
+    runs, which have no bf16 mode, warn at ``"fast"`` and run fp32.
+    ``e_step_thresh`` goes to the final refit: a :class:`PreparedCounts`
+    refits dense whatever its value, the sparse layout and raw input above
+    1e-30 refit sparse and apply it exactly.
     """
     _check_model(model)
     cuda_em._check_precision(precision)
-    if e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL:
-        raise NotImplementedError(
-            f"e_step_thresh={e_step_thresh} fires in float32 and the final refit "
-            "needs the exact sparse E-step, which is not ported yet (ROADMAP.md); "
-            "pass e_step_thresh=1e-32, as EnsembleTopics does"
-        )
     if topic_combination not in _topic_combiner:
         raise ValueError(f"topic_combination must be one of {tuple(_topic_combiner)}")
 
     timings = {}
     t0 = time.perf_counter()
-    parallelism = resolve_parallelism(parallelism, model)
-    if isinstance(X, PreparedCounts):
+    is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
+    parallelism = resolve_parallelism(parallelism, model, backend, X if is_prepared else None)
+    if is_prepared:
         prepared, X = X, None
         if parallelism != "weights":
             raise ValueError("Prepared input requires model='plsa' and parallelism='weights'")
-        dev = prepared.device_array.device
+        dev = (prepared.device if isinstance(prepared, PreparedSell)
+               else prepared.device_array.device)
     else:
         # raw float32 counts, not l1-normalised: the ensemble fits the counts
         X = _check_counts(X, dtype=np.float32)
         dev = resolve_device(device)
         prepared = None
-        if parallelism == "weights":
+        if parallelism == "weights" and backend == "sparse":
+            prepared = prepare_sell(X, standardize=False, device=dev)
+        elif parallelism == "weights":
             prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
                                       standardize=False, device=dev)
     _sync(dev)
@@ -516,7 +556,8 @@ class EnsembleTopics(TopicModelBase):
     Parameters are the JAX package's, plus ``device`` (``"cuda"`` by default;
     a CUDA device that is missing raises, nothing falls back to the CPU).
     ``precision="fast"`` runs the bootstrap fits and the refit through the
-    bf16-responsibilities kernels. Fitted attributes: ``components_``
+    bf16-responsibilities kernels. ``backend="sparse"`` runs them, and
+    ``transform``, on the O(nnz) sparse layout. Fitted attributes: ``components_``
     (n_components_, n_words), ``embedding_``, ``training_data_`` and
     ``n_components_``, the number of stable topics found (may differ from
     ``n_components``).
@@ -581,7 +622,7 @@ class EnsembleTopics(TopicModelBase):
                 "ensemble has no weighted path); weight the individual PLSA fits "
                 "instead"
             )
-        if not isinstance(X, PreparedCounts):
+        if not isinstance(X, (PreparedCounts, PreparedSell)):
             X = _check_counts(X)
             if np.any(X.data < 0):
                 raise ValueError(
@@ -616,7 +657,7 @@ class EnsembleTopics(TopicModelBase):
         )
         self.components_ = V
         self.embedding_ = U
-        self.training_data_ = None if isinstance(X, PreparedCounts) else X
+        self.training_data_ = None if isinstance(X, (PreparedCounts, PreparedSell)) else X
         self.n_components_ = self.components_.shape[0]
         return U
 

@@ -2,8 +2,10 @@
 
 ``fit`` / ``fit_transform`` / ``transform``; fitted attributes
 ``components_``, ``embedding_``, ``history_``, ``n_iter_``, ``fit_info_`` and
-``training_data_``. On ``device="cuda"`` each EM step is one launch of the
-hand-written CUDA kernel; on ``device="cpu"`` it is plain PyTorch.
+``training_data_``. On ``device="cuda"`` each EM step runs the hand-written
+CUDA kernels (the dense B pass and the word pass, or with
+``backend="sparse"`` the two sparse passes); on ``device="cpu"`` it is plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..ops.driver import PreparedCounts, plsa_fit, plsa_refit
+from ..ops.sell import PreparedSell
 from ..utils import _check_sample_weight, check_random_state
 from .base import TopicModelBase, reinsert_zero_rows, split_zero_rows, validate_corpus
 
@@ -21,11 +24,13 @@ class PLSA(TopicModelBase):
 
     Parameters are the JAX package's, plus ``device`` (``"cuda"`` by default;
     a CUDA device that is missing raises, nothing falls back to the CPU).
-    ``backend`` is ``"auto"``, ``"cuda"`` or ``"torch"`` and must match the
-    device. ``precision``: ``"default"`` and ``"highest"`` run the fp32
-    kernel; ``"fast"`` runs its bf16-responsibilities mode (the factors move
-    at bf16 rounding level, the log-likelihood stays fp32). ``e_step_thresh``
-    above 1e-30 needs the sparse path, which is not ported yet, and raises.
+    ``backend`` is ``"auto"``, ``"cuda"`` or ``"torch"`` (which must match the
+    device), or ``"sparse"``, the O(nnz) path on either device.
+    ``precision``: ``"default"`` and ``"highest"`` run the fp32 kernel;
+    ``"fast"`` runs its bf16-responsibilities mode (the factors move at bf16
+    rounding level, the log-likelihood stays fp32; the sparse path warns and
+    runs fp32). ``e_step_thresh`` above 1e-30 routes the fit to the sparse
+    path, which applies it exactly; ``transform`` passes no threshold.
     """
 
     def __init__(
@@ -70,12 +75,13 @@ class PLSA(TopicModelBase):
     def fit_transform(self, X, y=None, sample_weight=None):
         """Fit and return the document embedding ``P(z|d)``.
 
-        ``X`` may be a scipy sparse or dense matrix, or a
-        :class:`~enstop_torch.ops.driver.PreparedCounts`; in that case
-        validation and zero-row handling are skipped (zero rows come back as
-        zero embeddings) and ``training_data_`` is None.
+        ``X`` may be a scipy sparse or dense matrix, a
+        :class:`~enstop_torch.ops.driver.PreparedCounts` or a
+        :class:`~enstop_torch.ops.sell.PreparedSell`; for the two prepared
+        kinds validation and zero-row handling are skipped (zero rows come
+        back as zero embeddings) and ``training_data_`` is None.
         """
-        if isinstance(X, PreparedCounts):
+        if isinstance(X, (PreparedCounts, PreparedSell)):
             sample_weight = _check_sample_weight(sample_weight, X, dtype=np.float32)
             U, V, info = plsa_fit(X, self.n_components, sample_weight=sample_weight,
                                   **self._fit_args())

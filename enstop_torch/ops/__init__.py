@@ -1,2 +1,3 @@
-"""EM ops of the PyTorch port: plain versions (``em``), CUDA kernel wrappers
-(``cuda_em``), fit loops (``fit``) and the fit/refit drivers (``driver``)."""
+"""EM ops of the PyTorch port: plain versions (``em``, ``coo``), CUDA kernel
+wrappers (``cuda_em``, ``cuda_sparse``), the sparse path (``sell``), fit
+loops (``fit``) and the fit/refit drivers (``driver``)."""

@@ -4,6 +4,10 @@
 (no PyTorch headers, so a build takes seconds), under ``enstop_torch/_build/``
 (git-ignored). The library's name carries a hash of the source and the flags,
 so an edited source is rebuilt and a stale library is never loaded.
+:func:`build_all` runs one ``nvcc`` per source, all started together.
+
+``LAUNCHES`` counts kernel launches by kernel and mode; each wrapper raises
+its count where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -23,13 +28,25 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# launches by kernel and mode: the dense EM kernel's B + LL launch of the EM
+# step ("em"), of the refit ("refit"), its LL sweep ("ll"), their bf16r modes,
+# and the sparse passes, plain, thresholded and (word pass only) bf16r
+LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
+            "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
+            "doc_pass": 0, "doc_pass_thresh": 0}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "em_dense": {
-        # x_bf16, bf16_r, with_a, with_b, compute_ll, X, zd, wzT, w, AT, B, ll, n, m, kp,
-        # stream
-        "enstop_em_dense": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+        # x_bf16, bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, stream
+        "enstop_em_dense": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+    },
+    "em_sparse": {
+        # word, thresholded, compute_ll, bf16_r, seg_ptr, seg_owner, owner_seg_ptr, idx,
+        # vals, zd, wzT, w, thresh, partial, ll_seg, out, n_seg, n_owner, kp, stream
+        "enstop_em_sparse": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
+                             _P, _LL, _LL, _I, _P),
     },
 }
 
@@ -81,3 +98,10 @@ def library(name):
         fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def build_all(names=tuple(_SIGNATURES)):
+    """Build and load every library in ``names``, one ``nvcc`` each, all
+    started together; returns the libraries in order."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(library, names))

@@ -12,6 +12,13 @@ version from :mod:`.em`; on a CUDA tensor it launches the kernel or raises.
 Normalising the factors after the accumulators is plain torch, as it sits
 outside the Pallas kernel in JAX too.
 
+The EM step on the card is two launches: the dense kernel's B (and LL) over
+the rows of X, and the word pass of :mod:`.cuda_sparse` for A over the
+word-major nonzeros of X (``word``, the :class:`~.cuda_sparse.Side` that
+``prepare_counts`` builds), one owner per word. Every element of A, B and the
+LL is summed in one fixed order, so a step gives the same bits from launch to
+launch.
+
 ``precision``: ``"highest"`` and ``"default"`` are both served by the fp32
 kernel. ``"fast"`` runs the EM and refit steps through the kernel's
 bf16-responsibilities mode (``BF16R``; plain version ``em.*_bf16r``), the
@@ -28,12 +35,11 @@ from __future__ import annotations
 import torch
 
 from . import em as em_ops
-from ._build import library
+from ._build import LAUNCHES, library
+from .cuda_sparse import MAX_KP, build_side, word_pass
 
 _TINY = em_ops._TINY
-MAX_KP = 256  # the kernel holds at most 8 topics per lane in registers
-
-LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0}
+_WARPS = 8  # document rows per block of the dense kernel (csrc/em_dense.cu: kWarps)
 
 
 def _check_precision(precision):
@@ -60,8 +66,17 @@ def _weights(sample_weight, n, device):
     return sample_weight.to(device=device, dtype=torch.float32).contiguous()
 
 
-def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll, bf16_r=False):
-    """Validate, allocate and launch one kernel; returns ``(AT, B, ll)``."""
+def word_side_of(X):
+    """The word-major nonzeros of a padded dense ``X`` as a
+    :class:`~.cuda_sparse.Side` (one ``nonzero`` pass over X; ``prepare_counts``
+    builds it once from the COO instead)."""
+    cols_rows = torch.nonzero(X.t())  # sorted by (column, row)
+    cols, rows = cols_rows[:, 0], cols_rows[:, 1]
+    return build_side(cols, rows, X[rows, cols].float(), X.shape[1], X.shape[0])
+
+
+def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False):
+    """Validate, allocate and launch one dense kernel; returns ``(B, ll, wzT, w)``."""
     if X.dim() != 2 or zd.dim() != 2 or wz.dim() != 2:
         raise ValueError("X, p_z_given_d and p_w_given_z must be 2-D")
     n, m = X.shape
@@ -89,45 +104,47 @@ def _launch(kind, X, zd, wz, sample_weight, with_a, with_b, compute_ll, bf16_r=F
     dev = X.device
     w = _weights(sample_weight, n, dev)
     wzT = wz.t().contiguous()  # (m, kp): a nonzero's topic column is contiguous
-    AT = torch.zeros((m, kp), dtype=torch.float32, device=dev) if with_a else None
     B = torch.empty((n, kp), dtype=torch.float32, device=dev) if with_b else None
-    ll = torch.zeros((1,), dtype=torch.float32, device=dev)
+    # one LL partial per block of the grid, summed below in a fixed order
+    ll_part = torch.empty((min(-(-n // _WARPS), 1 << 30) if compute_ll else 0,),
+                          dtype=torch.float32, device=dev)
     fn = library("em_dense").enstop_em_dense
     with torch.cuda.device(dev):
         err = fn(
-            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_a), int(with_b),
-            int(compute_ll),
+            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_b), int(compute_ll),
             X.data_ptr(), zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
-            None if AT is None else AT.data_ptr(),
-            None if B is None else B.data_ptr(),
-            ll.data_ptr(), n, m, kp, torch.cuda.current_stream(dev).cuda_stream,
+            None if B is None else B.data_ptr(), ll_part.data_ptr(),
+            n, m, kp, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"em_dense kernel launch failed: cudaError {err}")
     LAUNCHES[kind + "_bf16r" if bf16_r else kind] += 1
-    return AT, B, ll[0]
+    return B, ll_part.sum(), wzT, w
 
 
 def em_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
-                          compute_ll=True, precision="default"):
+                          compute_ll=True, precision="default", word=None):
     """Raw ``(A, B, ll)`` accumulators before normalisation. With
-    ``compute_ll=False`` the returned ``ll`` is 0."""
+    ``compute_ll=False`` the returned ``ll`` is 0. ``word``: the word-major
+    nonzeros of X (``PreparedCounts.word``); made from X when None."""
     bf16_r = _check_precision(precision)
     if _on_cpu(X):
         plain = em_ops.em_accumulators_bf16r if bf16_r else em_ops.em_accumulators_dense
         A, B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return A, B, ll if compute_ll else torch.zeros_like(ll)
-    AT, B, ll = _launch("em", X, p_z_given_d, p_w_given_z, sample_weight,
-                        True, True, compute_ll, bf16_r)
+    B, ll, wzT, w = _launch("em", X, p_z_given_d, p_w_given_z, sample_weight,
+                            True, compute_ll, bf16_r)
+    AT, _ = word_pass(word_side_of(X) if word is None else word, p_z_given_d, wzT, w,
+                      compute_ll=False, bf16r=bf16_r)
     return AT.t(), B, ll
 
 
 def em_step_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
-                  compute_ll=True, precision="default"):
+                  compute_ll=True, precision="default", word=None):
     """Fused equivalent of :func:`.em.em_step_dense`:
     ``(next_zd, next_wz, ll_of_inputs)``."""
     A, B, ll = em_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight,
-                                     compute_ll, precision)
+                                     compute_ll, precision, word)
     next_wz = p_w_given_z * A
     next_wz = next_wz / next_wz.sum(dim=1, keepdim=True).clamp_min(_TINY)
     next_zd = p_z_given_d * B
@@ -144,8 +161,8 @@ def refit_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
         plain = em_ops.refit_accumulators_bf16r if bf16_r else em_ops.refit_accumulators_dense
         B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return B, ll if compute_ll else torch.zeros_like(ll)
-    _, B, ll = _launch("refit", X, p_z_given_d, p_w_given_z, sample_weight,
-                       False, True, compute_ll, bf16_r)
+    B, ll, _, _ = _launch("refit", X, p_z_given_d, p_w_given_z, sample_weight,
+                          True, compute_ll, bf16_r)
     return B, ll
 
 
@@ -166,5 +183,4 @@ def log_likelihood_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
     _check_precision(precision)
     if _on_cpu(X):
         return em_ops.log_likelihood_dense(X, p_z_given_d, p_w_given_z, sample_weight)
-    return _launch("ll", X, p_z_given_d, p_w_given_z, sample_weight,
-                   False, False, True)[2]
+    return _launch("ll", X, p_z_given_d, p_w_given_z, sample_weight, False, True)[1]

@@ -1,18 +1,22 @@
 """Data layout for the EM kernels: zero-padded dense blocks (counterpart of
-``enstop_tpu/ops/data.py``).
+``enstop_tpu/ops/data.py``), and the nonzeros shipped to the device.
 
 The count matrix is a zero-padded dense array whose dimensions are rounded up
 (rows to 8, columns to 128, topics to 8); the padding is absorbing zeros
-through every update. Sparse corpora are densified on the device
-(``ops/driver.py``); dense input is padded on the host here.
+through every update. A corpus ships to the device as its nonzeros
+(:func:`ship_coo`, O(nnz) bytes); the dense staging scatters them into the
+padded rectangle there (``ops/driver.py``), the sparse layouts sort them
+(``ops/sell.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
-__all__ = ["round_up", "pad_dense_counts", "pad_factors", "unpad_factors", "pad_vector"]
+__all__ = ["round_up", "pad_dense_counts", "pad_factors", "unpad_factors", "pad_vector",
+           "resolve_device", "ship_coo"]
 
 ROW_MULTIPLE = 8
 COL_MULTIPLE = 128
@@ -62,3 +66,29 @@ def pad_vector(v, n_pad, fill=0.0):
     out = np.full((n_pad,), fill, dtype=np.float32)
     out[: v.shape[0]] = v
     return out
+
+
+def resolve_device(device):
+    """``torch.device`` for ``device``; raises when CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r}, but torch.cuda.is_available() is False; "
+            "pass device='cpu' for the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
+    return dev
+
+
+def ship_coo(X, device):
+    """The nonzeros of a (sparse or dense) matrix on ``device``: ``(rows,
+    cols, vals)``, int64, int64 and float32, in row-major order, each
+    (row, col) once (duplicates summed, explicit zeros dropped)."""
+    Xc = sp.csr_matrix(X, copy=True) if sp.issparse(X) else sp.csr_matrix(np.asarray(X))
+    Xc.sum_duplicates()
+    Xc.eliminate_zeros()
+    coo = Xc.tocoo()
+    return (torch.from_numpy(coo.row.astype(np.int64)).to(device),
+            torch.from_numpy(coo.col.astype(np.int64)).to(device),
+            torch.from_numpy(coo.data.astype(np.float32)).to(device))

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["synthetic_corpus", "twenty_newsgroups_shape"]
+__all__ = ["synthetic_corpus", "twenty_newsgroups_shape", "sparse_corpus"]
 
 
 def synthetic_corpus(
@@ -80,3 +80,21 @@ def twenty_newsgroups_shape(seed=0):
     return synthetic_corpus(
         n_docs=18846, n_words=25000, n_topics=20, tokens_per_doc=155, seed=seed
     )
+
+
+def sparse_corpus(n, m, nnz, seed=0):
+    """A Zipf-vocabulary count matrix of ``nnz`` draws, the JAX package's
+    sparse benchmark corpus (a NumPy copy of ``synth`` in
+    ``scripts/bench_sparse.py``): rows uniform, columns Zipf with exponent
+    1.05 (word 0 takes about a tenth of the draws at 141,000 words), counts
+    1 + Poisson(1.2), duplicates summed. ``sparse_corpus(250_000, 141_000,
+    19_000_000)`` is its config C, ``(100_000, 141_000, 6_200_000)`` C'."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, m + 1) ** 1.05
+    p /= p.sum()
+    rows = rng.randint(0, n, nnz).astype(np.int64)
+    cols = rng.choice(m, size=nnz, p=p).astype(np.int64)
+    vals = (1 + rng.poisson(1.2, nnz)).astype(np.float32)
+    X = sp.coo_matrix((vals, (rows, cols)), shape=(n, m)).tocsr()
+    X.sum_duplicates()
+    return X

@@ -6,9 +6,9 @@ beyond what ``chip_smoke.py`` checks.
 At the 20-Newsgroups shape (18,846 docs x 25,000 words, k = 20), the two
 precisions taking turns so that both see the card in the same state:
 
-* kernels: the CUDA-event mean of 50 launches of each ``em_dense`` mode (em,
-  em with the LL, refit; fp32 and bf16r) in four turns, and of 5 calls of
-  each plain version;
+* kernels: the CUDA-event mean of 50 launches of each EM kernel mode (em,
+  that is the dense B kernel and the word pass, em with the LL, refit; fp32
+  and bf16r) in four turns, and of 5 calls of each plain version;
 * ``PLSA.fit``, 100 iterations, a test every 10: wall, EM-loop wall and final
   LL;
 * ``EnsembleTopics(n_components=20, n_starts=16, n_iter=80, random_state=0)
@@ -94,14 +94,15 @@ def factors(X, seed=2):
     return zd, wz, torch.ones(n_pad, device=X.device)
 
 
-def measure_kernels(Xd, out):
+def measure_kernels(prep, out):
+    Xd = prep.device_array
     zd, wz, w = factors(Xd)
     modes = {}
     for suffix, precision in (("", "default"), ("_bf16r", "fast")):
         modes["em" + suffix] = lambda p=precision: cuda_em.em_accumulators_fused(
-            Xd, zd, wz, w, compute_ll=False, precision=p)
+            Xd, zd, wz, w, compute_ll=False, precision=p, word=prep.word)
         modes["em" + suffix + "_ll"] = lambda p=precision: cuda_em.em_accumulators_fused(
-            Xd, zd, wz, w, compute_ll=True, precision=p)
+            Xd, zd, wz, w, compute_ll=True, precision=p, word=prep.word)
         modes["refit" + suffix] = lambda p=precision: cuda_em.refit_accumulators_fused(
             Xd, zd, wz, w, compute_ll=False, precision=p)
     kernel_ms = {name: [] for name in modes}
@@ -260,9 +261,9 @@ def main():
 
     X, _ = twenty_newsgroups_shape(seed=0)
     docs = X[:N_TRANSFORM]
-    Xd = enstop_torch.prepare_counts(X, device="cuda").device_array
-    measure_kernels(Xd, out)
-    del Xd
+    prep = enstop_torch.prepare_counts(X, device="cuda")
+    measure_kernels(prep, out)
+    del prep
     measure_plsa(X, TURNS, out)
     measure_ensembles(X, docs, TURNS, out)
     measure_combine_parts(X, TURNS, out)

@@ -38,7 +38,7 @@ import enstop_tpu
 from enstop_torch.cluster.hdbscan import HDBSCAN as PortHDBSCAN
 from enstop_torch.cluster.umap import umap_embed as port_umap_embed
 from enstop_torch.models import ensemble as port_ens
-from enstop_torch.ops import cuda_em
+from enstop_torch.ops import cuda_em, cuda_sparse
 from enstop_torch.ops import em as port_em
 from enstop_torch.synthetic import synthetic_corpus
 from enstop_tpu.cluster.distances import all_pairs_hellinger_distance as jax_hellinger
@@ -313,9 +313,132 @@ def test_prepared_counts_and_checkpoints(corpus, tmp_path):
     lambda X: enstop_torch.ensemble_of_topics(X, 3, n_runs=2, parallelism="resample",
                                               device="cpu"),  # likewise
 ], ids=["nmf", "sparse", "sharded", "ensemble_fit_thresh", "resample_thresh"])
-def test_unported_routes_raise(corpus, call):
-    with pytest.raises(NotImplementedError):
-        call(corpus[0])
+def test_unported_routes_raise(request, corpus, call):
+    """NMF and the device mesh still raise; the sparse routes, ported since,
+    run (held against JAX below)."""
+    if request.node.callspec.id in ("nmf", "sharded"):
+        with pytest.raises(NotImplementedError):
+            call(corpus[0])
+        return
+    out = call(corpus[0])
+    for a in out if isinstance(out, tuple) else (getattr(out, "components_", out),):
+        assert np.all(np.isfinite(a))
+
+
+def _jax_sparse_stack_and_weights(X, init, monkeypatch):
+    from enstop_tpu.ops import sell as jax_sell
+
+    seen = []
+    real = jax_sell.sell_fit
+
+    def spy(prep, zd, wz, sample_weight=None, **kw):
+        seen.append(np.asarray(sample_weight))
+        return real(prep, zd, wz, sample_weight=sample_weight, **kw)
+
+    monkeypatch.setattr(jax_sell, "sell_fit", spy)
+    stack = jax_ens.ensemble_of_topics(X.astype(np.float32), K, init=init,
+                                       parallelism="weights", backend="sparse", **RUN_KW)
+    return stack, seen
+
+
+def test_sparse_stack_and_bootstrap_weights_match_jax(corpus, monkeypatch):
+    """The sparse fan-out from one explicit init: the same bootstrap weights
+    (exactly) and stacks within 1e-5 max-norm relative (float32 sums in
+    another order)."""
+    X, init = corpus
+    want, jax_weights = _jax_sparse_stack_and_weights(X, init, monkeypatch)
+    calls = dict(cuda_sparse.CALLS)
+    got = enstop_torch.ensemble_of_topics(X.astype(np.float32), K, init=init, device="cpu",
+                                          backend="sparse", **RUN_KW)
+    assert got.shape == want.shape == (4 * K, X.shape[1])
+    assert _maxrel(got, want) <= 1e-5
+    assert cuda_sparse.CALLS["word_pass"] - calls["word_pass"] == 4 * 20
+    prepared = enstop_torch.prepare_sell(X.astype(np.float32), standardize=False, device="cpu")
+    runs = list(port_ens.bootstrap_inputs(prepared, K, 4, np.random.RandomState(0), init=init,
+                                          X=X))
+    assert len(runs) == len(jax_weights) == 4
+    for (zd, wz, w), want_w in zip(runs, jax_weights):
+        assert zd.shape == (X.shape[0], K) and wz.shape == (K, X.shape[1])
+        np.testing.assert_array_equal(w.numpy(), want_w)
+    # init="random": made on the device at the layout's own (unpadded) shapes
+    zd, wz, w = next(port_ens.bootstrap_inputs(prepared, K, 1, np.random.RandomState(0)))
+    assert zd.shape == (X.shape[0], K) and wz.shape == (K, X.shape[1])
+    torch.testing.assert_close(wz.sum(1), torch.ones(K))
+
+
+@pytest.mark.parametrize("prepared", [False, True])
+def test_sparse_estimator_matches_jax(corpus, prepared):
+    """``EnsembleTopics(backend="sparse")`` (or a PreparedSell) against JAX's,
+    one explicit init: the same stable topics within 1e-5 and embeddings
+    within 1e-4; with a random init on each side (other random streams) the
+    quality band: the same number of stable topics, each within 0.1 of a JAX
+    topic (max abs), which the corpus's topics are 100 times apart."""
+    X, init = corpus
+    kw = dict(n_components=K, n_starts=8, n_iter=20, random_state=0,
+              topic_combination="hellinger")
+    ref = enstop_tpu.EnsembleTopics(backend="sparse", parallelism="weights", init=init,
+                                    **kw).fit(X)
+    data = (enstop_torch.prepare_sell(X.astype(np.float32), standardize=False, device="cpu")
+            if prepared else X)
+    port = enstop_torch.EnsembleTopics(backend="sparse", init=init, device="cpu", **kw)
+    emb = port.fit_transform(data)
+    assert port.n_components_ == ref.n_components_ == K
+    rows, cols, gap = _matched(port.components_, ref.components_)
+    assert gap <= 1e-5
+    np.testing.assert_allclose(emb[:, rows], ref.embedding_[:, cols], rtol=0, atol=1e-4)
+    assert (port.training_data_ is None) == prepared
+    np.testing.assert_allclose(port.transform(X[:25])[:, rows], ref.transform(X[:25])[:, cols],
+                               rtol=0, atol=1e-4)
+
+    port_r = enstop_torch.EnsembleTopics(backend="sparse", device="cpu", **kw).fit(data)
+    ref_r = enstop_tpu.EnsembleTopics(backend="sparse", parallelism="weights", **kw).fit(X)
+    assert port_r.n_components_ == ref_r.n_components_ == K
+    assert _matched(port_r.components_, ref_r.components_)[2] <= 0.1
+
+
+def test_ensemble_fit_at_its_default_threshold_matches_jax(corpus):
+    """``ensemble_fit``'s own ``e_step_thresh=1e-16`` with a PreparedCounts
+    refits dense, as JAX does (it raised before the sparse path was ported)."""
+    X, init = corpus
+    kw = dict(init=init, n_starts=4, n_iter=20, random_state=0, parallelism="weights",
+              topic_combination="hellinger")
+    emb, topics = enstop_torch.ensemble_fit(X, K, device="cpu", **kw)
+    jemb, jtopics = jax_ens.ensemble_fit(X, K, backend="xla", **kw)
+    rows, cols, gap = _matched(topics, np.asarray(jtopics))
+    assert gap <= 1e-6
+    np.testing.assert_allclose(emb[:, rows], np.asarray(jemb)[:, cols], rtol=0, atol=1e-5)
+    # with the sparse layout the refit applies the threshold exactly, as JAX's does
+    emb_s, topics_s = enstop_torch.ensemble_fit(X, K, device="cpu", backend="sparse", **kw)
+    jemb_s, jtopics_s = jax_ens.ensemble_fit(X, K, backend="sparse", **kw)
+    rows, cols, gap = _matched(topics_s, np.asarray(jtopics_s))
+    assert gap <= 1e-5
+    np.testing.assert_allclose(emb_s[:, rows], np.asarray(jemb_s)[:, cols], rtol=0, atol=1e-4)
+
+
+def test_resample_routes_the_threshold_to_the_sparse_path(corpus):
+    X, _ = corpus
+    kw = dict(n_runs=2, n_iter=10, random_state=1)
+    calls = dict(cuda_sparse.CALLS)
+    got = enstop_torch.ensemble_of_topics(X, K, parallelism="resample", device="cpu", **kw)
+    assert cuda_sparse.CALLS["word_pass"] - calls["word_pass"] == 2 * 10
+    want = jax_ens.ensemble_of_topics(X, K, parallelism="resample", **kw)
+    assert _maxrel(got, want) <= 1e-5
+
+
+def test_sparse_fan_out_warns_at_fast_and_rejects_sharded(corpus):
+    X, _ = corpus
+    with pytest.warns(UserWarning, match="fast"):
+        enstop_torch.ensemble_of_topics(X, K, n_runs=1, n_iter=3, backend="sparse",
+                                        precision="fast", device="cpu")
+    with pytest.raises(ValueError, match="sparse"):
+        enstop_torch.EnsembleTopics(backend="sparse", parallelism="sharded",
+                                    device="cpu").fit(X)
+    prep = enstop_torch.prepare_sell(X, standardize=False, device="cpu")
+    with pytest.raises(ValueError, match="sparse"):
+        port_ens.resolve_parallelism("sharded", prepared=prep)
+    assert port_ens.resolve_parallelism("auto", backend="sparse") == "weights"
+    with pytest.raises(ValueError, match="Prepared"):
+        enstop_torch.ensemble_fit(prep, K, parallelism="resample", device="cpu")
 
 
 def test_estimator_validation(corpus):

@@ -4,8 +4,11 @@ Needs an NVIDIA GPU and nvcc; skipped without one. Run on the card with
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest`` (the suite's
 conftest sets up JAX, which these tests do not use). Small shapes, ragged
 before padding and spanning several blocks of rows. Tolerances: rtol 1e-4
-on A, B and the factors (the kernel reduces A with atomics, in another order
-than the plain matmul), rtol 1e-5 on the log-likelihood. The bf16r modes of
+on A, B and the factors (the kernels sum in another order than the plain
+matmul), rtol 1e-5 on the log-likelihood. The sparse passes (kernels #8 and
+#9) hold their accumulators to 1e-5 of the largest entry and the LL to 1e-5
+relative, with the threshold off, at 1e-16 and at 1e-3. Every kernel gives
+the same bits from launch to launch (nothing is summed with atomics). The bf16r modes of
 ``precision="fast"`` hold A to 1e-4 and B to 1e-3 of their largest entry (S
 summed in another order can flip the bf16 rounding of a ratio, which moves one
 term of B by 2^-8), and each lies at least 4 times nearer its bf16r plain
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 import enstop_torch
-from enstop_torch.ops import cuda_em
+from enstop_torch.ops import cuda_em, cuda_sparse
 from enstop_torch.ops import em as port_em
 
 pytestmark = pytest.mark.cuda
@@ -191,3 +194,97 @@ def test_fast_plsa_and_ensemble_on_cuda(cuda):
     assert model.n_components_ >= 2 and np.all(np.isfinite(emb))
     np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-4)
     assert cuda_em.LAUNCHES["em_bf16r"] - before["em_bf16r"] == 30 + 4 * 20
+
+
+def _sparse_problem(device, weighted, k=20, seed=0):
+    """A corpus with a column in every document (several segments), an empty
+    document and an empty word, its sparse layout and factors on ``device``."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n, m = 700, 300
+    dense = (rng.random((n, m)) < 0.03) * rng.integers(1, 6, (n, m))
+    dense[:, 0] = rng.integers(1, 4, n)
+    dense[5] = 0
+    dense[:, 9] = 0
+    prep = enstop_torch.prepare_sell(sp.csr_matrix(dense.astype(np.float32)),
+                                     standardize=False, device=device)
+    zd = rng.random((n, k)).astype(np.float32) + 0.01
+    zd /= zd.sum(1, keepdims=True)
+    wzT = rng.random((m, k)).astype(np.float32) + 0.01
+    wzT /= wzT.sum(0, keepdims=True)
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32) if weighted else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa: E731
+    return prep, to(zd), to(wzT), to(w)
+
+
+@pytest.mark.parametrize("word", [True, False], ids=["word_pass", "doc_pass"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("thresh", [None, 1e-16, 1e-3], ids=["off", "1e-16", "1e-3"])
+@pytest.mark.parametrize("compute_ll", [False, True])
+def test_sparse_passes_match_plain(cuda, word, weighted, thresh, compute_ll):
+    prep, zd, wzT, w = _sparse_problem(cuda, weighted)
+    side = prep.word if word else prep.doc
+    kernel, plain = ((cuda_sparse.word_pass, cuda_sparse.word_pass_plain) if word
+                     else (cuda_sparse.doc_pass, cuda_sparse.doc_pass_plain))
+    key = ("word_pass" if word else "doc_pass") + ("" if thresh is None else "_thresh")
+    before = cuda_em.LAUNCHES[key]
+    out, ll = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll)
+    again, ll_again = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll)
+    torch.cuda.synchronize()
+    assert cuda_em.LAUNCHES[key] == before + 2
+    assert torch.equal(out, again) and torch.equal(ll, ll_again)
+    out0, ll0 = plain(side, zd, wzT, w, thresh=thresh, compute_ll=True)
+    _close(out, out0, 1e-5)
+    if compute_ll:
+        _close(ll, ll0, 1e-5)
+    else:
+        assert float(ll) == 0.0
+
+
+@pytest.mark.parametrize("k", [3, 40, 130])
+def test_sparse_pass_topic_widths(cuda, k):
+    prep, zd, wzT, w = _sparse_problem(cuda, True, k=k, seed=k)
+    for side, kernel, plain in ((prep.word, cuda_sparse.word_pass, cuda_sparse.word_pass_plain),
+                                (prep.doc, cuda_sparse.doc_pass, cuda_sparse.doc_pass_plain)):
+        for got, want in zip(kernel(side, zd, wzT, w, thresh=1e-3),
+                             plain(side, zd, wzT, w, thresh=1e-3)):
+            _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("precision", ["default", "fast"])
+def test_dense_step_is_the_same_from_launch_to_launch(cuda, precision):
+    X, zd, wz, w = _problem(cuda, torch.bfloat16, True, seed=3)
+    word = cuda_em.word_side_of(X)
+    first = cuda_em.em_accumulators_fused(X, zd, wz, w, precision=precision, word=word)
+    for _ in range(3):
+        again = cuda_em.em_accumulators_fused(X, zd, wz, w, precision=precision, word=word)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    key = "word_pass_bf16r" if precision == "fast" else "word_pass"
+    before = cuda_em.LAUNCHES[key]
+    cuda_em.em_accumulators_fused(X, zd, wz, w, precision=precision)  # word side made from X
+    assert cuda_em.LAUNCHES[key] == before + 1
+
+
+def test_sparse_plsa_on_cuda_matches_cpu_and_repeats(cuda):
+    from enstop_torch.synthetic import synthetic_corpus
+
+    X, _ = synthetic_corpus(n_docs=300, n_words=700, n_topics=8, seed=2)
+    kw = dict(n_components=8, n_iter=30, tolerance=0, random_state=0)
+    before = dict(cuda_em.LAUNCHES)
+    gpu = enstop_torch.PLSA(e_step_thresh=1e-16, **kw).fit(X)
+    again = enstop_torch.PLSA(e_step_thresh=1e-16, **kw).fit(X)
+    cpu = enstop_torch.PLSA(e_step_thresh=1e-16, device="cpu", **kw).fit(X)
+    assert cuda_em.LAUNCHES["word_pass_thresh"] - before["word_pass_thresh"] == 60
+    assert gpu.fit_info_["backend"] == "sparse"
+    np.testing.assert_array_equal(gpu.components_, again.components_)
+    np.testing.assert_allclose(gpu.history_, cpu.history_, rtol=1e-5)
+    np.testing.assert_allclose(gpu.components_, cpu.components_, rtol=1e-3, atol=1e-5)
+    dense = enstop_torch.PLSA(**kw).fit(X)
+    dense_again = enstop_torch.PLSA(**kw).fit(X)
+    np.testing.assert_array_equal(dense.components_, dense_again.components_)
+    ens = [enstop_torch.EnsembleTopics(n_components=8, n_starts=4, n_iter=20, random_state=0,
+                                       backend=backend).fit(X) for backend in ("auto", "auto",
+                                                                                "sparse")]
+    np.testing.assert_array_equal(ens[0].components_, ens[1].components_)
+    assert ens[2].n_components_ >= 2 and np.all(np.isfinite(ens[2].components_))

@@ -181,18 +181,133 @@ def test_pad_state_and_warm_start():
     dict(e_step_thresh=1e-16),
 ], ids=["fast", "sparse", "nndsvd", "nmf", "e_step_thresh"])
 def test_unported_options_raise(kwargs):
-    """The options still to port raise; ``precision="fast"``, ported since,
-    fits and transforms (held against JAX in ``test_torch_fast.py``)."""
+    """The options still to port raise; ``precision="fast"``, the sparse
+    backend and a firing ``e_step_thresh``, ported since, fit and transform
+    (held against JAX in ``test_torch_fast.py`` and below)."""
     model = enstop_torch.PLSA(n_components=3, device="cpu", **kwargs)
-    if kwargs == dict(precision="fast"):
+    if "init" not in kwargs:
         X = _counts()
         emb = model.fit_transform(X)
         assert emb.shape == (X.shape[0], 3) and np.all(np.isfinite(emb))
         np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)
         assert np.all(np.isfinite(model.transform(X[:10])))
+        sparse = kwargs != dict(precision="fast")
+        assert (model.fit_info_["backend"] == "sparse") == sparse
         return
     with pytest.raises(NotImplementedError):
         model.fit(_counts())
+
+
+def _sparse_init(X, k, seed=8):
+    r = np.random.RandomState(seed)
+    return r.rand(X.shape[0], k), r.rand(k, X.shape[1])
+
+
+@pytest.mark.parametrize("route", ["backend", "auto_thresh", "prepared"])
+def test_plsa_fit_sparse_matches_jax(route):
+    """``backend="sparse"``, the auto-route of a firing threshold and a
+    PreparedSell all run the sparse path and agree with JAX's (rtol 1e-5 on
+    the LL trace, factors as FACTOR_TOL) from one explicit init."""
+    from enstop_tpu.ops.driver import plsa_fit as jax_fit
+
+    X, w = _counts(), np.random.RandomState(3).uniform(0.5, 1.5, 60).astype(np.float32)
+    kw = dict(sample_weight=w, init=_sparse_init(X, 4), n_iter=25, n_iter_per_test=5,
+              tolerance=0.0, return_info=True)
+    port_kw = dict(backend="sparse", e_step_thresh=1e-32)
+    if route == "auto_thresh":
+        port_kw = dict(e_step_thresh=1e-16)
+    X_in = X
+    if route == "prepared":
+        X_in = enstop_torch.prepare_sell(X, standardize=False, device="cpu")
+        port_kw = dict(e_step_thresh=1e-16)
+    zd, wz, info = port_driver.plsa_fit(X_in, 4, device="cpu", **kw, **port_kw)
+    jzd, jwz, jinfo = jax_fit(X, 4, e_step_thresh=port_kw["e_step_thresh"],
+                              backend="sparse", **kw)
+    assert info["backend"] == "sparse" and info["n_steps"] == jinfo["n_steps"] == 25
+    np.testing.assert_allclose(info["ll_trace"], jinfo["ll_trace"], rtol=1e-5)
+    np.testing.assert_allclose(zd, jzd, **FACTOR_TOL)
+    np.testing.assert_allclose(wz, jwz, **FACTOR_TOL)
+    assert info["nnz_k_updates_per_s"] > 0
+
+
+def _auto_pair(**kw):
+    """Both estimators at the backend ``kw`` names, else ``"auto"``."""
+    return (enstop_torch.PLSA(n_components=4, random_state=0, device="cpu", **kw),
+            enstop_tpu.PLSA(n_components=4, random_state=0, precision="highest", **kw))
+
+
+def test_sparse_plsa_estimator_matches_jax():
+    X, w = _corpus()
+    port, ref = _auto_pair(backend="sparse")
+    port.fit(X, sample_weight=w)
+    ref.fit(X, sample_weight=w)
+    _assert_same_fit(port, ref)
+    assert port.fit_info_["backend"] == "sparse" and np.all(port.embedding_[5] == 0)
+    np.testing.assert_allclose(port.transform(X[:30]), ref.transform(X[:30]), **FACTOR_TOL)
+
+    # a firing threshold routes the fit to the sparse path; transform passes none
+    port, ref = _auto_pair(e_step_thresh=1e-3, n_iter=30)
+    port.fit(X)
+    ref.fit(X)
+    _assert_same_fit(port, ref)
+    assert port.fit_info_["backend"] == "sparse"
+    np.testing.assert_allclose(port.transform(X[:30]), ref.transform(X[:30]), **FACTOR_TOL)
+
+
+def test_prepared_sell_reuse():
+    X = _counts()
+    prep = enstop_torch.prepare_sell(X, standardize=False, device="cpu")
+    assert isinstance(prep, enstop_torch.PreparedSell) and prep.shape == X.shape
+    for k, seed in ((3, 2), (5, 4)):
+        a = enstop_torch.PLSA(n_components=k, random_state=seed, device="cpu").fit(prep)
+        b = enstop_torch.PLSA(n_components=k, random_state=seed, backend="sparse",
+                              device="cpu").fit(X)
+        assert a.training_data_ is None and a.n_iter_ == b.n_iter_
+        np.testing.assert_allclose(a.components_, b.components_, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(a.embedding_, b.embedding_, rtol=1e-6, atol=1e-7)
+    topics = a.components_
+    got = port_driver.plsa_refit(prep, topics, random_state=5, device="cpu")
+    np.testing.assert_allclose(
+        got, port_driver.plsa_refit(X, topics, random_state=5, backend="sparse", device="cpu"),
+        rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match="PreparedSell"):
+        enstop_torch.PLSA(n_components=3, init="nndsvd", device="cpu").fit(prep)
+    with pytest.raises(ValueError, match="prepare_sell"):
+        enstop_torch.prepare_counts(X, backend="sparse", device="cpu")
+
+
+def test_prepared_counts_stay_dense_whatever_the_threshold():
+    """As in the JAX package, a PreparedCounts runs the dense path even with a
+    firing threshold (the ensemble's refit depends on it)."""
+    X = _counts()
+    prep = enstop_torch.prepare_counts(X, device="cpu")
+    calls = dict(port_driver.em_ops.CALLS)
+    _, _, info = port_driver.plsa_fit(prep, 3, e_step_thresh=1e-16, n_iter=5,
+                                      return_info=True, device="cpu")
+    assert info["backend"] == "torch"
+    assert port_driver.em_ops.CALLS["em"] > calls["em"]
+
+
+def test_fast_on_sparse_warns_and_runs_fp32():
+    X = _counts()
+    kw = dict(n_components=3, random_state=0, n_iter=10, backend="sparse", device="cpu")
+    with pytest.warns(UserWarning, match="fast"):
+        fast = enstop_torch.PLSA(precision="fast", **kw).fit(X)
+    exact = enstop_torch.PLSA(**kw).fit(X)
+    np.testing.assert_array_equal(fast.components_, exact.components_)
+    with pytest.warns(UserWarning, match="fast"):
+        fast.transform(X[:10])
+
+
+def test_jax_sparse_checkpoint_loads_and_transforms_the_same(tmp_path):
+    X, _ = _corpus()
+    ref = enstop_tpu.PLSA(n_components=4, random_state=0, backend="sparse", n_iter=20).fit(X)
+    path = tmp_path / "jax_sparse_plsa.npz"
+    ref.save(path)
+    loaded = enstop_torch.PLSA.load(path, device="cpu")
+    assert loaded.backend == "sparse"
+    np.testing.assert_array_equal(loaded.components_, ref.components_)
+    np.testing.assert_allclose(loaded.transform(X[:25]), ref.transform(X[:25]), **FACTOR_TOL)
 
 
 def test_backend_must_match_device():
