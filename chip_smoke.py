@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu`` and
-``em_sparse.cu``, one ``nvcc`` each, started together) and checks each
-kernel (the dense fp32 and bf16-responsibilities modes of ``precision="fast"``,
-the sparse word and doc passes, plain and thresholded) against its plain
-PyTorch version on the card. Then it drives the main paths, each with the
+Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
+``em_sparse.cu`` and ``em_batch.cu``, one ``nvcc`` each, started together)
+and checks each kernel (the dense fp32 and bf16-responsibilities modes of
+``precision="fast"``, the sparse word and doc passes, plain and thresholded,
+the batched row and word passes) against its plain PyTorch version on the
+card. Then it drives the main paths, each with the
 launch counts set to 0 just before it and read just after:
 
 1. ``PLSA.fit`` (100 iterations) and ``transform`` on 2,000 documents at the
@@ -24,7 +25,10 @@ launch counts set to 0 just before it and read just after:
 7. ``PLSA(e_step_thresh=1e-16)`` at 20NG, which routes to the sparse path's
    thresholded modes;
 8. ``EnsembleTopics(backend="sparse", n_components=20, n_starts=16,
-   n_iter=80)`` at config C' (100,000 docs x 141,000 words, 6.2 M draws).
+   n_iter=80)`` at config C' (100,000 docs x 141,000 words, 6.2 M draws);
+9. ``cuda_batch.batched_em_fit``: 16 bootstrap runs of the 20NG ensemble
+   (its own inits and multinomial weights), 80 steps, held against 16
+   sequential fits of ``em_step_fused`` (phase 12).
 
 It checks that every kernel of each path was launched, that no plain op was
 called, and that the results agree with the plain path on the card, and it
@@ -44,9 +48,12 @@ which moves one term of B by 2^-8). As the plain fp32 accumulators lie about
 nearer its bf16r plain version than the fp32 one. The sparse passes hold A
 and B to 1e-5 and the LL to 1e-5: both sides sum in fixed orders, not the
 same ones, and the threshold mask is the same on both (each product is one
-rounded fp32 multiply). A fit's final LL is held to 1e-4 relative of a plain
-fit from the same initial factors (and, for an ensemble's first two bootstrap
-runs, the same document weights). The combine stage: squared Hellinger
+rounded fp32 multiply). The batched kernel holds A and B to 1e-4, as the
+dense fp32 modes do, and the batched fit's factors lie within rtol 1e-4 /
+atol 1e-6 of the sequential fits' (the JAX package's own test). A fit's
+final LL is held to 1e-4 relative of a plain fit from the same initial
+factors (and, for an ensemble's first two bootstrap runs, the same document
+weights). The combine stage: squared Hellinger
 distances within 1e-5 of a float64 reference (a float32 Gram matrix over
 25,000 words; readings on the H100 2.2e-6 on the card, 9.4e-7 on the host),
 and bit for bit the matrix the ensemble used when recomputed with TF32
@@ -81,6 +88,7 @@ N_TRANSFORM = 2000  # documents embedded by the transform phase
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM data sheet, 700 W
 DENSE_SOURCE = "enstop_torch/ops/csrc/em_dense.cu"
 SPARSE_SOURCE = "enstop_torch/ops/csrc/em_sparse.cu"
+BATCH_SOURCE = "enstop_torch/ops/csrc/em_batch.cu"
 KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "em": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:176"),
     "refit": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:224"),
@@ -92,11 +100,15 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "word_pass_bf16r": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_em_variants.py:138"),
     "doc_pass": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     "doc_pass_thresh": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
+    "batch": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
+    "batch_word": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
 }
 ENSEMBLE = dict(n_components=20, n_starts=16, n_iter=80, random_state=0)
 CONFIG_C = (250_000, 141_000, 19_000_000)    # the JAX package's sparse config C
 CONFIG_C2 = (100_000, 141_000, 6_200_000)    # and its config C'
 THRESHOLDS = (None, 1e-16, 1e-3)
+BATCH_RUNS = 16                              # the ensemble's n_starts
+BATCH_FIT_RTOL, BATCH_FIT_ATOL = 1e-4, 1e-6  # the JAX package's batched-fit test
 
 
 def check(ok, what):
@@ -330,6 +342,43 @@ def sparse_bound_ms(side, n, m, k):
     return bound(moved, 4 * k * side.nnz)
 
 
+def batch_bound_ms(X, R, kp, nnz, part):
+    """The least time for the batched kernel's ``part``: ``"rows"`` (B: X,
+    and each run's zd, wz and B once; 4 kp fp32 operations a nonzero and
+    run), ``"words"`` (A: the index and count of each nonzero, and each run's
+    zd, wz, weights and A once; 4 kp operations) or ``"both"`` (the whole
+    function: X, and each run's zd, wz, weights, A and B once; 6 kp
+    operations)."""
+    n_pad, m_pad = X.shape
+    factors = n_pad * kp + kp * m_pad
+    x_bytes = X.numel() * X.element_size()
+    moved, ops = {"rows": (x_bytes + 4 * R * (factors + n_pad * kp), 4),
+                  "words": (8 * nnz + 4 * R * (factors + n_pad + kp * m_pad), 4),
+                  "both": (x_bytes + 4 * R * (factors + n_pad + kp * m_pad + n_pad * kp), 6)}[part]
+    return bound(moved, ops * kp * nnz * R)
+
+
+def ptxas_instances(report):
+    """``{kernel instance: (registers, spill store bytes)}`` from ``-Xptxas -v``."""
+    out, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1)
+            out[name] = (0, 0)
+        elif name and (spill := re.search(r"(\d+) bytes spill stores", line)):
+            out[name] = (out[name][0], int(spill.group(1)))
+        elif name and (used := re.search(r"Used (\d+) registers", line)):
+            out[name] = (int(used.group(1)), out[name][1])
+    return out
+
+
+def batch_problem(X, R, k, seed):
+    """R runs' random padded factors and weights, stacked."""
+    runs = [problem(X, k, True, seed + r) for r in range(R)]
+    return tuple(torch.stack([run[i] for run in runs]) for i in range(3))
+
+
 def sparse_problem(prep, k, weighted, seed):
     """Factors on the card shaped like a fitted model's, so that a threshold
     of 1e-3 keeps some products of an entry and drops others: P(z|d) from a
@@ -400,7 +449,7 @@ def main():
     import enstop_torch
     check(Path(enstop_torch.__file__).resolve().parents[1] == Path(__file__).resolve().parent,
           "enstop_torch is imported from the checkout that holds this script")
-    from enstop_torch.ops import _build, cuda_em, cuda_sparse, driver, sell
+    from enstop_torch.ops import _build, cuda_batch, cuda_em, cuda_sparse, driver, sell
     from enstop_torch.ops import em
     from enstop_torch.ops.init import plsa_init
     from enstop_torch.convert import pad_state
@@ -420,7 +469,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build_all()
-    for name in ("em_dense", "em_sparse"):
+    for name in ("em_dense", "em_sparse", "em_batch"):
         build = _build.BUILD_LOG.get(name)
         if build is None:  # an earlier run in this checkout left the library
             print(f"phase 1 build: {name} loaded from enstop_torch/_build")
@@ -431,7 +480,17 @@ def main():
               f"{len(registers)} kernel instances, at most {max(registers)} registers a "
               f"thread, {sum(s > 0 for s in spills)} with spill stores (at most "
               f"{max(spills)} B)")
-    print(f"  both built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
+        if name == "em_batch":
+            instances = ptxas_instances(build["report"])
+            for R, kp in ((BATCH_RUNS, 24), (4, 104)):
+                kt, g = -(-kp // 32), cuda_batch.group_size(R, kp)
+                kt = 1 << (kt - 1).bit_length()
+                for pass_name in ("batch_rowsI13__nv_bfloat16", "batch_wordsI"):
+                    regs, spill = next(v for key, v in instances.items()
+                                       if pass_name in key and f"Li{kt}ELi{g}EE" in key)
+                    print(f"  em_batch at R = {R}, kp = {kp}: group size G = {g}, KT = {kt}; "
+                          f"{pass_name.split('I')[0]} {regs} registers, {spill} B spill stores")
+    print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
 
     # -- phase 2: each dense kernel against its plain version -----------------
     rng = np.random.RandomState(0)
@@ -870,6 +929,112 @@ def main():
         print(f"  sparse bootstrap run {i}: final LL kernel {got[3]:.6f} plain {want[3]:.6f} "
               f"rel gap {gap:.3e}")
         check(gap <= FIT_LL_RTOL, f"sparse bootstrap run {i} agrees with the plain fit")
+
+    # -- phase 12: the batched multi-run fit at full width ----------------------
+    t_phase12 = time.perf_counter()
+    # the 20NG ensemble's 16 bootstrap runs: its own device inits and weights
+    runs = list(ens.bootstrap_inputs(prep, 20, BATCH_RUNS,
+                                     np.random.RandomState(ENSEMBLE["random_state"])))
+    zds, wzs, ws = (torch.stack([run[i] for run in runs]) for i in range(3))
+    nnz = int(torch.count_nonzero(Xd))
+    batch_worst = {"batch": 0.0, "batch_word": 0.0}
+    X32 = Xd.float()
+    for R, k in ((BATCH_RUNS, 20), (4, 100)):
+        inputs = (zds, wzs, ws) if k == 20 else batch_problem(Xd, R, k, seed=7)
+        for Xt in (Xd, X32):
+            for weighted in (False, True):
+                z, w_, wt = inputs[0], inputs[1], inputs[2] if weighted else None
+                A, B = cuda_batch.batched_accumulators(Xt, z, w_, wt, word=prep.word)
+                A0, B0 = em.batched_accumulators_dense(Xt, z, w_, wt)
+                torch.cuda.synchronize()
+                ea, eb = rel_err(A, A0), rel_err(B, B0)
+                print(f"  batched accumulators R = {R} k = {k} {str(Xt.dtype)[6:]} "
+                      f"weighted={weighted}: rel err A {ea:.3e} B {eb:.3e}")
+                check(ea <= A_B_RTOL and eb <= A_B_RTOL, f"batched kernel at R = {R}, k = {k}")
+                batch_worst["batch"] = max(batch_worst["batch"], abs_err((B, B0)))
+                batch_worst["batch_word"] = max(batch_worst["batch_word"], abs_err((A, A0)))
+                del A0, B0
+    del X32
+    worst.update(batch_worst)
+    A, B = cuda_batch.batched_accumulators(Xd, zds, wzs, ws, word=prep.word)
+    same_runs = True
+    for r in range(BATCH_RUNS):
+        A1, B1, _ = cuda_em.em_accumulators_fused(Xd, zds[r], wzs[r], ws[r], compute_ll=False,
+                                                  word=prep.word)
+        same_runs &= torch.equal(A[r], A1) and torch.equal(B[r], B1)
+    print("phase 12 batched kernel vs plain: ok, largest abs err", json.dumps(batch_worst),
+          f"; each run's A and B against a single-run em_accumulators_fused: "
+          f"{'bit for bit the same' if same_runs else 'DIFFER'}")
+
+    n_iter = ENSEMBLE["n_iter"]
+    reset_counts(cuda_em, em)
+    t0 = time.perf_counter()
+    zf, wf = cuda_batch.batched_em_fit(Xd, zds, wzs, ws, n_iter, word=prep.word)
+    torch.cuda.synchronize()
+    batch_fit_s = time.perf_counter() - t0
+    launches = read_counts("batched fit", ("batch", "batch_word"), cuda_em, em, totals)
+    check(launches["batch"] == n_iter and launches["batch_word"] == n_iter
+          and sum(launches.values()) == 2 * n_iter,
+          f"the batched fit launched the row and word passes {n_iter} times each, nothing else")
+    check(bool(torch.isfinite(zf).all() and torch.isfinite(wf).all()), "finite batched factors")
+    check(float((wf[:, :20].sum(2) - 1).abs().max()) <= 1e-4, "batched topics are distributions")
+
+    def sequential_fits():
+        """The same runs one after another, each ``n_iter`` single-run steps."""
+        out = []
+        for r in range(BATCH_RUNS):
+            zd_r, wz_r = zds[r], wzs[r]
+            for _ in range(n_iter):
+                zd_r, wz_r, _ = cuda_em.em_step_fused(Xd, zd_r, wz_r, ws[r], compute_ll=False,
+                                                       word=prep.word)
+            out.append((zd_r, wz_r))
+        return out
+
+    t0 = time.perf_counter()
+    seq = sequential_fits()
+    torch.cuda.synchronize()
+    seq_fit_s = time.perf_counter() - t0
+    seq_zd, seq_wz = torch.stack([s_[0] for s_ in seq]), torch.stack([s_[1] for s_ in seq])
+    gap = abs_err((zf, seq_zd), (wf, seq_wz))
+    close = all(torch.allclose(a, b, rtol=BATCH_FIT_RTOL, atol=BATCH_FIT_ATOL)
+                for a, b in ((zf, seq_zd), (wf, seq_wz)))
+    zf2, wf2 = cuda_batch.batched_em_fit(Xd, zds, wzs, ws, n_iter, word=prep.word)
+    repeat = torch.equal(zf, zf2) and torch.equal(wf, wf2)
+    print(f"  batched fit, {BATCH_RUNS} runs x {n_iter} steps: {batch_fit_s:.4f} s wall; "
+          f"{BATCH_RUNS} sequential em_step_fused fits {seq_fit_s:.4f} s wall; factors max abs "
+          f"gap {gap:.3e} ({'0: bit for bit the same' if gap == 0 else 'not 0'}), within "
+          f"rtol {BATCH_FIT_RTOL} / atol {BATCH_FIT_ATOL}: {close}; repeat batched fit "
+          f"{'bit for bit the same' if repeat else 'DIFFERS'}")
+    check(close, "the batched fit agrees with the sequential fits")
+    check(repeat, "repeat batched fits are bit for bit the same")
+
+    wzT_b = wzs.transpose(1, 2).contiguous()
+    batch_plain_ms = cuda_ms(lambda: em.batched_accumulators_dense(Xd, zds, wzs, ws), 2)
+    timing["batch"] = (cuda_ms(lambda: cuda_batch.batch_rows(Xd, zds, wzT_b), 20),
+                       batch_plain_ms)
+    timing["batch_word"] = (cuda_ms(lambda: cuda_batch.batch_words(prep.word, zds, wzT_b, ws),
+                                    20), batch_plain_ms)
+    bounds["batch"] = batch_bound_ms(Xd, BATCH_RUNS, kp, nnz, "rows")
+    bounds["batch_word"] = batch_bound_ms(Xd, BATCH_RUNS, kp, nnz, "words")
+    both = batch_bound_ms(Xd, BATCH_RUNS, kp, nnz, "both")
+    acc_ms = cuda_ms(lambda: cuda_batch.batched_accumulators(Xd, zds, wzs, ws, word=prep.word),
+                     20)
+    seq_acc_ms = cuda_ms(lambda: [cuda_em.em_accumulators_fused(
+        Xd, zds[r], wzs[r], ws[r], compute_ll=False, word=prep.word)
+        for r in range(BATCH_RUNS)], 5)
+    fit_ms = cuda_ms(lambda: cuda_batch.batched_em_fit(Xd, zds, wzs, ws, n_iter,
+                                                       word=prep.word), 1)
+    seq_fit_ms = cuda_ms(sequential_fits, 1)
+    print(f"  time at 20NG, R = {BATCH_RUNS}, k = 20, bf16 X (CUDA events): batched "
+          f"accumulators {acc_ms:.4f} ms (row pass {timing['batch'][0]:.4f} ms, word pass "
+          f"{timing['batch_word'][0]:.4f} ms), {BATCH_RUNS} single-run accumulators "
+          f"{seq_acc_ms:.4f} ms, plain batched {batch_plain_ms:.4f} ms; bound {both[0]:.4f} ms "
+          f"({both[1]}), row pass {bounds['batch'][0]:.4f}, word pass "
+          f"{bounds['batch_word'][0]:.4f}")
+    print(f"  {n_iter}-step fits (CUDA events): batched {fit_ms:.2f} ms, {BATCH_RUNS} sequential "
+          f"{seq_fit_ms:.2f} ms; batched is "
+          f"{seq_fit_ms / fit_ms:.2f} times faster; phase 12 took "
+          f"{time.perf_counter() - t_phase12:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -30,10 +30,11 @@ NVCC_FLAGS = (
 
 # launches by kernel and mode: the dense EM kernel's B + LL launch of the EM
 # step ("em"), of the refit ("refit"), its LL sweep ("ll"), their bf16r modes,
-# and the sparse passes, plain, thresholded and (word pass only) bf16r
+# the sparse passes, plain, thresholded and (word pass only) bf16r, and the
+# batched kernel's row pass for B ("batch") and word pass for A ("batch_word")
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
-            "doc_pass": 0, "doc_pass_thresh": 0}
+            "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points, by library
@@ -47,6 +48,12 @@ _SIGNATURES = {
         # vals, zd, wzT, w, thresh, partial, ll_seg, out, n_seg, n_owner, kp, stream
         "enstop_em_sparse": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
                              _P, _LL, _LL, _I, _P),
+    },
+    "em_batch": {
+        # word, x_bf16, group, X, zd, wzT, w, B, seg_ptr, seg_owner, owner_seg_ptr, idx,
+        # vals, partial, AT, R, n, m, n_seg, kp, stream
+        "enstop_em_batch": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _LL, _LL, _LL, _LL, _I, _P),
     },
 }
 

@@ -1,0 +1,179 @@
+"""Wrappers of the hand-written CUDA batched EM kernel (counterpart of
+``enstop_tpu/ops/pallas_batch.py``): R runs that share one X, each with its
+own factors and document weights, in one pass over X a step.
+
+The functions take the JAX functions' arguments without the TPU tile shape
+(``bd``, ``bw``), as :mod:`.cuda_em` does: X (n, m), ``zds`` (R, n, kp),
+``wzs`` (R, kp, m), ``ws`` (R, n) or None. ``batched_accumulators`` returns
+the raw ``(A (R, kp, m), B (R, n, kp))``, A weighted and B never. On a CPU
+tensor it computes the plain version (:func:`.em.batched_accumulators_dense`);
+on a CUDA tensor it launches the kernel (``csrc/em_batch.cu``: the row pass
+for B, counted as ``"batch"``, and the word pass for A over the word-major
+nonzeros ``word``, counted as ``"batch_word"``) or raises. ``batched_em_step``
+normalises outside the kernel, as JAX does; ``batched_em_fit`` runs a fixed
+number of steps, with no log-likelihood, no tests and no early stop, as in
+JAX.
+
+``precision``: ``"default"``, ``"highest"`` and ``"fast"`` all run fp32. The
+JAX batch kernel has no bf16-responsibilities layout, and its ``"fast"``
+resolves to the same matmul precision as ``"default"``; the port maps that
+precision class to fp32.
+
+``word`` is the word-major :class:`~.cuda_sparse.Side` of X (from
+:func:`.cuda_em.word_side_of` or ``PreparedCounts.word``). It depends on X
+only, so every run and every step shares one; ``batched_em_fit`` builds it
+once when it is not given.
+
+``EnsembleTopics`` does not use this path: as in the JAX package, it fits
+each bootstrap on its own, with per-run early stopping.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import em as em_ops
+from ._build import LAUNCHES, library
+from .cuda_em import _check_precision, _on_cpu, word_side_of
+from .cuda_sparse import MAX_KP
+from .data import resolve_device
+
+__all__ = ["group_size", "batch_rows", "batch_words", "batched_accumulators",
+           "batched_em_step", "batched_em_fit"]
+
+_TINY = em_ops._TINY
+_GROUP_FLOATS = 16  # G * KT at most (csrc/em_batch.cu: kGroupFloats)
+
+
+def group_size(R, kp):
+    """Runs one warp takes at once: the least power of two that holds all R
+    runs, capped at ``16 // KT`` (KT = ceil(kp / 32) rounded up to a power of
+    two, topics a lane), so a lane holds at most 16 factor values and 16
+    accumulators."""
+    kt = 1 if kp <= 32 else 2 if kp <= 64 else 4 if kp <= 128 else 8
+    g = 1
+    while g < min(R, _GROUP_FLOATS // kt):
+        g *= 2
+    return g
+
+
+def _check_tables(zds, wzT, n, m, device, ws=None):
+    """The run tables the passes read: ``zds`` (R, n, kp), ``wzT`` (R, m, kp)
+    and, for the word pass, ``ws`` (R, n); float32, contiguous, on the CUDA
+    ``device``. Returns ``(R, kp)``."""
+    if zds.dim() != 3 or wzT.dim() != 3:
+        raise ValueError("zds and wzT must be 3-D")
+    R, _, kp = zds.shape
+    shapes = [(zds, (R, n, kp)), (wzT, (R, m, kp))] + ([] if ws is None else [(ws, (R, n))])
+    for t, shape in shapes:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"a run table has shape {tuple(t.shape)}, expected {shape}")
+    for t, _ in shapes:
+        if t.dtype != torch.float32:
+            raise TypeError(f"run tables must be float32, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("run tables must be contiguous")
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"a run table lies on {t.device}, the pass runs on {device}")
+    if not 0 < kp <= MAX_KP:
+        raise ValueError(f"padded topic count {kp} must be in 1..{MAX_KP}")
+    return R, kp
+
+
+def _launch(name, dev, *args):
+    fn = library("em_batch").enstop_em_batch
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"em_batch {name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def batch_rows(X, zds, wzT):
+    """The row pass: ``B`` (R, n, kp) from X (n, m), bf16 or float32, and the
+    run tables ``zds`` (R, n, kp) and ``wzT`` (R, m, kp)."""
+    if X.dim() != 2 or X.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"X must be a 2-D bfloat16 or float32 tensor, not {X.dtype} "
+                        f"of {X.dim()} dimensions")
+    n, m = X.shape
+    if (m * X.element_size()) % 16 or not X.is_contiguous() or X.data_ptr() % 16:
+        raise ValueError(f"X must be contiguous and 16-byte aligned in whole 16-byte rows "
+                         f"(padded width {m})")
+    R, kp = _check_tables(zds, wzT, n, m, X.device)
+    B = torch.empty((R, n, kp), dtype=torch.float32, device=X.device)
+    _launch("batch", X.device, 0, int(X.dtype == torch.bfloat16), group_size(R, kp),
+            X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), None, B.data_ptr(), None, None, None,
+            None, None, None, None, R, n, m, 0, kp)
+    return B
+
+
+def batch_words(word, zds, wzT, ws):
+    """The word pass: ``A^T`` (R, m, kp) over the word-major ``word`` side of
+    X, from the run tables ``zds`` (R, n, kp), ``wzT`` (R, m, kp) and the
+    document weights ``ws`` (R, n)."""
+    m, n = word.n_owner, word.n_index
+    R, kp = _check_tables(zds, wzT, n, m, word.device, ws)
+    partial = torch.empty((R, word.n_seg, kp), dtype=torch.float32, device=word.device)
+    AT = torch.empty((R, m, kp), dtype=torch.float32, device=word.device)
+    _launch("batch_word", word.device, 1, 0, group_size(R, kp), None, zds.data_ptr(),
+            wzT.data_ptr(), ws.data_ptr(), None, word.seg_ptr.data_ptr(),
+            word.seg_owner.data_ptr(), word.owner_seg_ptr.data_ptr(), word.idx.data_ptr(),
+            word.vals.data_ptr(), partial.data_ptr(), AT.data_ptr(), R, n, m, word.n_seg, kp)
+    return AT
+
+
+def batched_accumulators(X, zds, wzs, ws=None, precision="default", word=None):
+    """Raw ``(A (R, kp, m), B (R, n, kp))`` of every run before normalisation.
+    ``ws``: per-run document weights, any shape of R * n elements, or None.
+    ``word``: the word-major nonzeros of X; made from X when None."""
+    _check_precision(precision)
+    if ws is not None:
+        ws = ws.reshape(zds.shape[0], zds.shape[1])
+    if _on_cpu(X):
+        return em_ops.batched_accumulators_dense(X, zds, wzs, ws)
+    if wzs.dim() != 3:
+        raise ValueError(f"wzs must be (R, kp, m), not of shape {tuple(wzs.shape)}")
+    zds = zds.contiguous()
+    wzT = wzs.transpose(1, 2).contiguous()  # (R, m, kp): a word's topic row is contiguous
+    ws = (torch.ones(zds.shape[:2], device=X.device) if ws is None
+          else ws.to(torch.float32).contiguous())
+    B = batch_rows(X, zds, wzT)
+    AT = batch_words(word_side_of(X) if word is None else word, zds, wzT, ws)
+    return AT.transpose(1, 2), B
+
+
+def batched_em_step(X, zds, wzs, ws=None, precision="default", word=None):
+    """One EM step of every run: ``(next_zds, next_wzs)``."""
+    A, B = batched_accumulators(X, zds, wzs, ws, precision, word)
+    next_wz = wzs * A
+    next_wz = next_wz / next_wz.sum(dim=2, keepdim=True).clamp_min(_TINY)
+    next_zd = zds * B
+    next_zd = next_zd / next_zd.sum(dim=2, keepdim=True).clamp_min(_TINY)
+    return next_zd, next_wz
+
+
+def _on(device, a, dtype=None):
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(a)
+    if dtype is None and a.dtype not in (torch.bfloat16, torch.float32):
+        dtype = torch.float32
+    return a.to(device=device, dtype=dtype)
+
+
+def batched_em_fit(X, zds, wzs, ws, n_iter, precision="default", word=None, device="cuda"):
+    """A fixed number of batched EM steps of every run; ``(zds, wzs)``.
+
+    Arrays (numpy or tensors) go to ``device``, which defaults to the card and
+    raises where there is none; pass ``device="cpu"`` for the plain path. X
+    keeps a bfloat16 or float32 type and takes float32 otherwise."""
+    dev = resolve_device(device)
+    _check_precision(precision)
+    X = _on(dev, X)
+    zds, wzs = _on(dev, zds, torch.float32), _on(dev, wzs, torch.float32)
+    ws = None if ws is None else _on(dev, ws, torch.float32)
+    if dev.type == "cuda" and word is None:
+        word = word_side_of(X)
+    for _ in range(n_iter):
+        zds, wzs = batched_em_step(X, zds, wzs, ws, precision, word)
+    return zds, wzs

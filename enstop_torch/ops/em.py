@@ -23,6 +23,10 @@ counterpart of ``_tile_math(bf16_r=True)`` in
 bf16 operand is widened to float32 first, so a bf16 product is exact and the
 sums stay float32 on any device). The log-likelihood stays float32.
 
+``batched_accumulators_dense`` is the plain version of the batched kernel
+(``csrc/em_batch.cu``): the accumulators of R runs that share one X, run by
+run, so no (R, n, m) tensor is ever made.
+
 ``CALLS`` counts calls of each accumulator function, so a run can show which
 path it took.
 """
@@ -33,7 +37,7 @@ import torch
 
 _TINY = 1e-30  # guard for S -> 0; stays in the f32 normal range
 
-CALLS = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0}
+CALLS = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0, "batch": 0}
 
 
 def _rownorm(a):
@@ -57,17 +61,34 @@ def _weighted_ll(Xf, nz, Ssafe, sample_weight):
     return (llmat * sample_weight.float()[:, None]).sum()
 
 
+def _products(R, p_z_given_d, p_w_given_z, sample_weight):
+    """``A = (w * P(z|d))^T R`` and ``B = R P(w|z)^T``."""
+    zd_w = p_z_given_d if sample_weight is None else (
+        p_z_given_d * sample_weight.float()[:, None])
+    return zd_w.t() @ R, R @ p_w_given_z.t()
+
+
 def em_accumulators_dense(X, p_z_given_d, p_w_given_z, sample_weight=None):
     """The raw per-pass quantities ``(A, B, ll)``: ``A`` (k, m) weighted,
     ``B`` (n, k) unweighted, ``ll`` the log-likelihood of the input factors."""
     CALLS["em"] += 1
     Xf, nz, Ssafe, R = _responsibilities(X, p_z_given_d, p_w_given_z)
-    ll = _weighted_ll(Xf, nz, Ssafe, sample_weight)
-    zd_w = p_z_given_d if sample_weight is None else (
-        p_z_given_d * sample_weight.float()[:, None])
-    A = zd_w.t() @ R
-    B = R @ p_w_given_z.t()
-    return A, B, ll
+    A, B = _products(R, p_z_given_d, p_w_given_z, sample_weight)
+    return A, B, _weighted_ll(Xf, nz, Ssafe, sample_weight)
+
+
+def batched_accumulators_dense(X, zds, wzs, ws=None):
+    """``(A (R, k, m), B (R, n, k))`` of R runs that share ``X``: run ``r``'s
+    ``A`` weighted by ``ws[r]`` (``ws`` (R, n) or None), ``B`` never. Each
+    run's pair is :func:`em_accumulators_dense`'s, computed one run at a time."""
+    CALLS["batch"] += 1
+    As, Bs = [], []
+    for r in range(zds.shape[0]):
+        R = _responsibilities(X, zds[r], wzs[r])[3]
+        A, B = _products(R, zds[r], wzs[r], None if ws is None else ws[r])
+        As.append(A)
+        Bs.append(B)
+    return torch.stack(As), torch.stack(Bs)
 
 
 def em_step_dense(X, p_z_given_d, p_w_given_z, sample_weight=None):

@@ -18,6 +18,7 @@ def test_import_leaves_jax_and_sklearn_out():
     code = (
         "import sys, enstop_torch, enstop_torch.convert, enstop_torch.synthetic\n"
         "import enstop_torch.cluster, enstop_torch.models.ensemble, enstop_torch.ops.coo\n"
+        "import enstop_torch.ops.cuda_batch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'enstop_tpu', 'sklearn'))\n"
         "print(bad)\n"
@@ -44,7 +45,8 @@ def test_exports():
         assert hasattr(enstop_torch, name)
     assert set(enstop_torch.LAUNCHES) == {
         "em", "refit", "ll", "em_bf16r", "refit_bf16r",
-        "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh"}
+        "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",
+        "batch", "batch_word"}
 
 
 def test_default_cuda_device_raises_without_a_card():

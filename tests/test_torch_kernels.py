@@ -13,7 +13,10 @@ the same bits from launch to launch (nothing is summed with atomics). The bf16r 
 summed in another order can flip the bf16 rounding of a ratio, which moves one
 term of B by 2^-8), and each lies at least 4 times nearer its bf16r plain
 version than the fp32 plain accumulators, so a kernel that skips the
-roundings fails.
+roundings fails. The batched kernel (#10) holds A and B to 1e-4 of the
+largest entry, as the dense fp32 modes do, repeats bit for bit, and gives
+each run the bits of a single-run ``em_accumulators_fused`` (the same
+operations in the same order).
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import pytest
 import torch
 
 import enstop_torch
-from enstop_torch.ops import cuda_em, cuda_sparse
+from enstop_torch.ops import cuda_batch, cuda_em, cuda_sparse
 from enstop_torch.ops import em as port_em
 
 pytestmark = pytest.mark.cuda
@@ -288,3 +291,64 @@ def test_sparse_plsa_on_cuda_matches_cpu_and_repeats(cuda):
                                                                                 "sparse")]
     np.testing.assert_array_equal(ens[0].components_, ens[1].components_)
     assert ens[2].n_components_ >= 2 and np.all(np.isfinite(ens[2].components_))
+
+
+def _batch_problem(device, dtype, R, k, weighted, n=203, m=650, seed=0):
+    """A ragged padded X and R runs' factors and weights on ``device``."""
+    rng = np.random.default_rng(seed)
+    X = _problem(device, dtype, False, n=n, m=m, k=k, seed=seed)[0]
+    n_pad, m_pad = X.shape
+    kp = -(-k // 8) * 8
+    zds = np.zeros((R, n_pad, kp), np.float32)
+    zds[:, :n, :k] = rng.random((R, n, k)) + 0.01
+    zds /= np.maximum(zds.sum(2, keepdims=True), 1e-30)
+    wzs = np.zeros((R, kp, m_pad), np.float32)
+    wzs[:, :k, :m] = rng.random((R, k, m)) + 0.01
+    wzs /= np.maximum(wzs.sum(2, keepdims=True), 1e-30)
+    ws = rng.uniform(0.5, 1.5, (R, n_pad)).astype(np.float32) if weighted else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa: E731
+    return X, to(zds), to(wzs), to(ws)
+
+
+# R = 1; kp > 32; a group with spare slots (R = 3, G = 4); two groups (R = 5,
+# kp = 104: G = 4); R = 9 at G = 16
+@pytest.mark.parametrize("R, k", [(1, 20), (3, 40), (5, 100), (9, 20)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_batch_kernel_matches_plain_and_repeats(cuda, R, k, dtype, weighted):
+    X, zds, wzs, ws = _batch_problem(cuda, dtype, R, k, weighted, seed=R)
+    word = cuda_em.word_side_of(X)
+    before = dict(cuda_em.LAUNCHES)
+    A, B = cuda_batch.batched_accumulators(X, zds, wzs, ws, word=word)
+    again = cuda_batch.batched_accumulators(X, zds, wzs, ws, word=word)
+    torch.cuda.synchronize()
+    assert cuda_em.LAUNCHES["batch"] == before["batch"] + 2
+    assert cuda_em.LAUNCHES["batch_word"] == before["batch_word"] + 2
+    assert torch.equal(A, again[0]) and torch.equal(B, again[1])
+    A0, B0 = port_em.batched_accumulators_dense(X, zds, wzs, ws)
+    _close(A, A0, 1e-4)
+    _close(B, B0, 1e-4)
+
+
+@pytest.mark.parametrize("R, k", [(3, 20), (5, 100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batch_runs_equal_single_runs(cuda, R, k, dtype):
+    X, zds, wzs, ws = _batch_problem(cuda, dtype, R, k, True, seed=10 + R)
+    word = cuda_em.word_side_of(X)
+    A, B = cuda_batch.batched_accumulators(X, zds, wzs, ws, word=word)
+    for r in range(R):
+        A1, B1, _ = cuda_em.em_accumulators_fused(X, zds[r], wzs[r], ws[r], compute_ll=False,
+                                                  word=word)
+        assert torch.equal(A[r], A1) and torch.equal(B[r], B1), r
+
+
+def test_batched_fit_on_cuda_matches_cpu(cuda):
+    X, zds, wzs, ws = _batch_problem(cuda, torch.bfloat16, 4, 8, True, seed=4)
+    before = dict(cuda_em.LAUNCHES)
+    zf, wf = cuda_batch.batched_em_fit(X, zds, wzs, ws, 10)
+    assert zf.device.type == "cuda"
+    assert cuda_em.LAUNCHES["batch"] - before["batch"] == 10
+    assert cuda_em.LAUNCHES["batch_word"] - before["batch_word"] == 10
+    zc, wc = cuda_batch.batched_em_fit(X.cpu(), zds.cpu(), wzs.cpu(), ws.cpu(), 10, device="cpu")
+    _close(zf.cpu(), zc, 1e-4)
+    _close(wf.cpu(), wc, 1e-4)
