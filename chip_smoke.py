@@ -30,9 +30,12 @@ launch counts set to 0 just before it and read just after:
    (its own inits and multinomial weights), 80 steps, held against 16
    sequential fits of ``em_step_fused`` (phase 12).
 
-It checks that every kernel of each path was launched, that no plain op was
-called, and that the results agree with the plain path on the card, and it
-holds the ensemble's combine stage on the card (Hellinger matrix, merge, UMAP
+Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
+entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
+24 dense) with the registers and spill stores of its instances, and fails if
+one of them spills. It checks that every kernel of each path was launched,
+that no plain op was called, and that the results agree with the plain path
+on the card, and it holds the ensemble's combine stage on the card (Hellinger matrix, merge, UMAP
 layout) against the host. Prints one line per phase, then a JSON line with
 each kernel's launches, error, time, plain time and bound, and last a JSON
 line with the device. Exits non-zero, with no result line, when anything
@@ -49,12 +52,13 @@ nearer its bf16r plain version than the fp32 one. The sparse passes hold A
 and B to 1e-5 and the LL to 1e-5: both sides sum in fixed orders, not the
 same ones, and the threshold mask is the same on both (each product is one
 rounded fp32 multiply). The batched kernel holds A and B to 1e-4, as the
-dense fp32 modes do, and the batched fit's factors lie within rtol 1e-4 /
-atol 1e-6 of the sequential fits' (the JAX package's own test). A fit's
-final LL is held to 1e-4 relative of a plain fit from the same initial
-factors (and, for an ensemble's first two bootstrap runs, the same document
-weights). The combine stage: squared Hellinger
-distances within 1e-5 of a float64 reference (a float32 Gram matrix over
+dense fp32 modes do; each run's A and B are a single-run step's bit for bit
+(the same operations in the same order); and the batched fit's factors lie
+within rtol 1e-4 / atol 1e-6 of the sequential fits' (the JAX package's own
+test). A fit's final LL is held to 1e-4 relative of a plain fit from the
+same initial factors (and, for an ensemble's first two bootstrap runs, the
+same document weights). The combine stage: squared Hellinger distances
+within 1e-5 of a float64 reference (a float32 Gram matrix over
 25,000 words; readings on the H100 2.2e-6 on the card, 9.4e-7 on the host),
 and bit for bit the matrix the ensemble used when recomputed with TF32
 allowed; the device merge within 1e-5 (max-norm relative) of the numpy merge;
@@ -101,7 +105,7 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "doc_pass": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     "doc_pass_thresh": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     "batch": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
-    "batch_word": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
+    "batch_word": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
 }
 ENSEMBLE = dict(n_components=20, n_starts=16, n_iter=80, random_state=0)
 CONFIG_C = (250_000, 141_000, 19_000_000)    # the JAX package's sparse config C
@@ -373,6 +377,17 @@ def ptxas_instances(report):
     return out
 
 
+def sparse_instance(mangled):
+    """``"L<L>_TPL<TPL>_V<V>_<pass>[_thresh|_bf16r]"`` for a mangled
+    ``segment_pass`` instance of ``em_sparse.cu``, else None."""
+    m = re.search(r"segment_passILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])EE", mangled)
+    if m is None:
+        return None
+    L, tpl, v, word, thresh, bf16r = (int(g) for g in m.groups())
+    return (f"L{L}_TPL{tpl}_V{v}_{'word' if word else 'doc'}" + ("_thresh" if thresh else "")
+            + ("_bf16r" if bf16r else ""))
+
+
 def batch_problem(X, R, k, seed):
     """R runs' random padded factors and weights, stacked."""
     runs = [problem(X, k, True, seed + r) for r in range(R)]
@@ -480,16 +495,29 @@ def main():
               f"{len(registers)} kernel instances, at most {max(registers)} registers a "
               f"thread, {sum(s > 0 for s in spills)} with spill stores (at most "
               f"{max(spills)} B)")
+        if name == "em_sparse":
+            instances = {sparse_instance(key): v for key, v in
+                         ptxas_instances(build["report"]).items() if sparse_instance(key)}
+            for kp in (20, 24):  # the main paths' topic counts: sparse k, padded dense kp
+                L, tpl = cuda_sparse.walk_shape(kp)
+                shape = f"L{L}_TPL{tpl}_V4_"
+                found = {key[len(shape):]: v for key, v in instances.items()
+                         if key.startswith(shape)}
+                print(f"  em_sparse at kp = {kp}: walk shape L = {L}, TPL = {tpl} "
+                      f"({32 // L} entries a warp); registers, spill store bytes by mode "
+                      f"{json.dumps(found)}")
+                check(len(found) == 5 and all(spill == 0 for _, spill in found.values()),
+                      f"the em_sparse instances at kp = {kp} are built and do not spill")
         if name == "em_batch":
             instances = ptxas_instances(build["report"])
             for R, kp in ((BATCH_RUNS, 24), (4, 104)):
                 kt, g = -(-kp // 32), cuda_batch.group_size(R, kp)
                 kt = 1 << (kt - 1).bit_length()
-                for pass_name in ("batch_rowsI13__nv_bfloat16", "batch_wordsI"):
-                    regs, spill = next(v for key, v in instances.items()
-                                       if pass_name in key and f"Li{kt}ELi{g}EE" in key)
-                    print(f"  em_batch at R = {R}, kp = {kp}: group size G = {g}, KT = {kt}; "
-                          f"{pass_name.split('I')[0]} {regs} registers, {spill} B spill stores")
+                regs, spill = next(v for key, v in instances.items()
+                                   if "batch_rowsI13__nv_bfloat16" in key
+                                   and f"Li{kt}ELi{g}EE" in key)
+                print(f"  em_batch at R = {R}, kp = {kp}: group size G = {g}, KT = {kt}; "
+                      f"batch_rows {regs} registers, {spill} B spill stores")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
 
     # -- phase 2: each dense kernel against its plain version -----------------
@@ -965,6 +993,7 @@ def main():
     print("phase 12 batched kernel vs plain: ok, largest abs err", json.dumps(batch_worst),
           f"; each run's A and B against a single-run em_accumulators_fused: "
           f"{'bit for bit the same' if same_runs else 'DIFFER'}")
+    check(same_runs, "each batched run's A and B are a single run's bit for bit")
 
     n_iter = ENSEMBLE["n_iter"]
     reset_counts(cuda_em, em)

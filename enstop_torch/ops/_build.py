@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 # launches by kernel and mode: the dense EM kernel's B + LL launch of the EM
 # step ("em"), of the refit ("refit"), its LL sweep ("ll"), their bf16r modes,
 # the sparse passes, plain, thresholded and (word pass only) bf16r, and the
-# batched kernel's row pass for B ("batch") and word pass for A ("batch_word")
+# batched fit's row pass for B ("batch") and word pass for A ("batch_word", the
+# sparse word pass over a grid of runs)
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
             "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0}
@@ -44,16 +45,15 @@ _SIGNATURES = {
         "enstop_em_dense": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
     },
     "em_sparse": {
-        # word, thresholded, compute_ll, bf16_r, seg_ptr, seg_owner, owner_seg_ptr, idx,
-        # vals, zd, wzT, w, thresh, partial, ll_seg, out, n_seg, n_owner, kp, stream
-        "enstop_em_sparse": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                             _P, _LL, _LL, _I, _P),
+        # word, thresholded, compute_ll, bf16_r, lanes, tpl, runs, seg_ptr, seg_owner,
+        # owner_seg_ptr, idx, vals, zd, wzT, w, thresh, partial, ll_seg, out, n_seg,
+        # n_owner, n_index, kp, stream
+        "enstop_em_sparse": (_I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _F, _P, _P, _P, _LL, _LL, _LL, _I, _P),
     },
     "em_batch": {
-        # word, x_bf16, group, X, zd, wzT, w, B, seg_ptr, seg_owner, owner_seg_ptr, idx,
-        # vals, partial, AT, R, n, m, n_seg, kp, stream
-        "enstop_em_batch": (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _LL, _LL, _LL, _LL, _I, _P),
+        # x_bf16, group, X, zd, wzT, B, R, n, m, kp, stream
+        "enstop_em_batch": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P),
     },
 }
 

@@ -1,7 +1,7 @@
 // Batched multi-run pLSA EM accumulators for Hopper (sm_90a).
 //
 // Replaces the TPU kernel in enstop_tpu/ops/pallas_batch.py:
-//   _make_batch_kernel (l.54)  -> the row pass (B) and the word pass (A) below
+//   _make_batch_kernel (l.54)  -> the row pass (B) below; A by em_sparse.cu
 // which computes, for R runs that share one zero-padded count matrix X (n, m),
 // with run r's factors zd[r] = P(z|d) (n, kp), wz[r] = P(w|z) (kp, m) and
 // document weights w[r] (n):
@@ -11,36 +11,33 @@
 // The normalisation of the factors happens outside, as it does in JAX.
 //
 // Route: the TPU kernel keeps each X tile in VMEM while it serves all R runs'
-// matmuls. Here each run's arithmetic is that of the single-run kernels -- the
-// dense B pass of em_dense.cu and the word pass of em_sparse.cu -- with a loop
-// over runs inside the warp, so X (and its word-major nonzeros) is read once
-// for a group of runs:
+// matmuls. Here B's arithmetic is that of the dense B pass of em_dense.cu with
+// a loop over runs inside the warp, so X is read once for a group of runs. A is
+// em_sparse.cu's word pass over the word-major nonzeros of X, launched once for
+// all R runs (the grid's y is the run; cuda_batch.batch_words), so each run's A
+// is a single run's bit for bit.
 //   * row pass (B): one warp owns a document row, streams it with 16-byte
 //     evict-first loads and marks its nonzeros, as em_dense.cu does. For each
 //     nonzero it computes S, the ratio and B's update for every run of the
 //     group; run r's wz column is the kp contiguous floats wzT[r, j, :] (one
 //     coalesced load). The group's zd rows and B accumulators live in
 //     registers, and B[r, i, :] is written once.
-//   * word pass (A): one warp owns a segment of at most 128 word-major entries
-//     of one word (cuda_sparse.Side), as em_sparse.cu's word pass does, and
-//     gathers zd[r, d, :] for each run of the group; the weight w[r, d] enters
-//     A only. The segments' partials (R, n_seg, kp) are summed per (run, word)
-//     in segment order by a second kernel into A^T (R, m, kp).
 //   * groups: the runs go G at a time, with G * KT <= 16 (KT topics a lane when
 //     kp > 32), so a lane holds at most 16 factor values and 16 accumulators of
-//     a group and nothing spills under __launch_bounds__(256). X is streamed,
-//     and a segment walked, once per group. G is a power of two that the caller
-//     picks (cuda_batch.group_size); the last group's spare slots repeat the
-//     last run and write nothing. The G runs of one nonzero are independent
-//     chains of loads and shuffle reductions, which the scheduler overlaps.
-//   * no atomics: every element of A and B has one owner and one summing order,
-//     so repeat launches give the same bits. Each run keeps the single-run
-//     kernels' order of operations (fmaf chains and the xor shuffle tree), so
-//     run r's A and B equal a single-run em_accumulators_fused of run r.
-// Bound: X read once (0.95 GB of bf16 at the 20NG shape, 18,848 x 25,088) and
-// each run's zd, wz, w, A and B once: about 1.08 GB for R = 16, kp = 24, 0.32 ms
-// at 3.35 TB/s. What keeps it above that: per nonzero and run, a dependent
-// load and a 5-step shuffle reduction, serial within a warp and R-fold.
+//     a group and nothing spills under __launch_bounds__(256). X is streamed
+//     once per group. G is a power of two that the caller picks
+//     (cuda_batch.group_size); the last group's spare slots repeat the last run
+//     and write nothing. The G runs of one nonzero are independent chains of
+//     loads and shuffle reductions, which the scheduler overlaps.
+//   * no atomics: every element of B has one owner and one summing order, so
+//     repeat launches give the same bits. Each run keeps the dense B pass's
+//     order of operations (fmaf chains and the xor shuffle tree), so run r's B
+//     equals a single-run em_accumulators_fused of run r bit for bit.
+// Bound of the row pass: X read once (0.95 GB of bf16 at the 20NG shape,
+// 18,848 x 25,088) and each run's zd, wz and B once: about 1.04 GB for R = 16,
+// kp = 24, 0.31 ms at 3.35 TB/s. What keeps it above that: per nonzero and
+// run, a dependent load and a 5-step shuffle reduction, serial within a warp
+// and R-fold.
 // All arithmetic is fp32 (IEEE division; built without --use_fast_math).
 // kp is at most 256.
 
@@ -50,7 +47,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;         // rows (segments, words) per block, one warp each
+constexpr int kWarps = 8;         // rows per block, one warp each
 constexpr int kUnroll = 4;        // 16-byte X loads in flight per lane, as em_dense.cu
 constexpr int kGroupFloats = 16;  // G * KT at most
 constexpr float kTiny = 1e-30f;
@@ -184,128 +181,13 @@ batch_rows(const XT* __restrict__ X, const float* __restrict__ zd,
   }
 }
 
-// A over the word-major segments: each segment's partial A^T row for every run.
-template <int KT, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-batch_words(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_owner,
-            const int32_t* __restrict__ idx, const float* __restrict__ vals,
-            const float* __restrict__ zd, const float* __restrict__ wzT,
-            const float* __restrict__ w, float* __restrict__ partial, int64_t R, int64_t n,
-            int64_t m, int64_t n_seg, int kp) {
-  const int lane = threadIdx.x & 31;
-  const int64_t seg = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (seg >= n_seg) return;  // whole warps only: no shuffle is left waiting
-  const int64_t begin = seg_ptr[seg], end = seg_ptr[seg + 1];
-  const int64_t word = seg_owner[seg];
-  for (int64_t r0 = 0; r0 < R; r0 += G) {
-    float own_r[G][KT], acc[G][KT];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float* wz_w = wzT + (run_of(r0, g, R) * m + word) * kp;
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int z = lane + 32 * t;
-        own_r[g][t] = z < kp ? wz_w[z] : 0.f;
-        acc[g][t] = 0.f;
-      }
-    }
-    for (int64_t base = begin; base < end; base += 32) {
-      const int cnt = end - base < 32 ? (int)(end - base) : 32;
-      int my_j = 0;
-      float my_x = 0.f, my_w[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) my_w[g] = 0.f;
-      if (lane < cnt) {
-        my_j = idx[base + lane];
-        my_x = vals[base + lane];
-#pragma unroll
-        for (int g = 0; g < G; ++g) my_w[g] = w[run_of(r0, g, R) * n + my_j];
-      }
-      for (int e = 0; e < cnt; ++e) {
-        const int64_t j = __shfl_sync(kFull, my_j, e);
-        const float x = __shfl_sync(kFull, my_x, e);
-        float g_r[G][KT], s[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float* row = zd + (run_of(r0, g, R) * n + j) * kp;
-          s[g] = 0.f;
-#pragma unroll
-          for (int t = 0; t < KT; ++t) {
-            const int z = lane + 32 * t;
-            g_r[g][t] = z < kp ? __ldg(row + z) : 0.f;
-            s[g] += __fmul_rn(own_r[g][t], g_r[g][t]);
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(kFull, s[g], off);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float wd = __shfl_sync(kFull, my_w[g], e);
-          const float r = x / fmaxf(s[g], kTiny);
-#pragma unroll
-          for (int t = 0; t < KT; ++t) acc[g][t] = fmaf(g_r[g][t] * wd, r, acc[g][t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (r0 + g >= R) break;
-      float* p = partial + ((r0 + g) * n_seg + seg) * kp;
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int z = lane + 32 * t;
-        if (z < kp) p[z] = acc[g][t];
-      }
-    }
-  }
-}
-
-// One warp per (run, word): the sum of the word's segment partials, in segment
-// order, into A^T[r, word, :] (a word with no segments gets 0).
-template <int KT>
-__global__ void __launch_bounds__(kWarps * 32)
-reduce_segments(const int64_t* __restrict__ owner_seg_ptr, const float* __restrict__ partial,
-                float* __restrict__ AT, int64_t R, int64_t m, int64_t n_seg, int kp) {
-  const int lane = threadIdx.x & 31;
-  const int64_t item = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (item >= R * m) return;
-  const int64_t r = item / m, word = item % m;
-  const float* p = partial + r * n_seg * kp;
-  float acc[KT];
-#pragma unroll
-  for (int t = 0; t < KT; ++t) acc[t] = 0.f;
-  for (int64_t s = owner_seg_ptr[word]; s < owner_seg_ptr[word + 1]; ++s) {
-#pragma unroll
-    for (int t = 0; t < KT; ++t) {
-      const int z = lane + 32 * t;
-      if (z < kp) acc[t] += p[s * kp + z];
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < KT; ++t) {
-    const int z = lane + 32 * t;
-    if (z < kp) AT[item * kp + z] = acc[t];
-  }
-}
-
 struct Args {
-  int word, x_bf16;
+  int x_bf16;
   const void* X;
   const float* zd;
   const float* wzT;
-  const float* w;
   float* B;
-  const int64_t* seg_ptr;
-  const int32_t* seg_owner;
-  const int64_t* owner_seg_ptr;
-  const int32_t* idx;
-  const float* vals;
-  float* partial;
-  float* AT;
-  int64_t R, n, m, n_seg;
+  int64_t R, n, m;
   int kp;
 };
 
@@ -316,27 +198,13 @@ unsigned blocks_of(int64_t items) {
 
 template <int KT, int G>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  if (!a.word) {
-    if (a.x_bf16) {
-      batch_rows<__nv_bfloat16, KT, G><<<blocks_of(a.n), kWarps * 32, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(a.X), a.zd, a.wzT, a.B, a.R, a.n, a.m, a.kp);
-    } else {
-      batch_rows<float, KT, G><<<blocks_of(a.n), kWarps * 32, 0, s>>>(
-          static_cast<const float*>(a.X), a.zd, a.wzT, a.B, a.R, a.n, a.m, a.kp);
-    }
-    return cudaGetLastError();
+  if (a.x_bf16) {
+    batch_rows<__nv_bfloat16, KT, G><<<blocks_of(a.n), kWarps * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a.X), a.zd, a.wzT, a.B, a.R, a.n, a.m, a.kp);
+  } else {
+    batch_rows<float, KT, G><<<blocks_of(a.n), kWarps * 32, 0, s>>>(
+        static_cast<const float*>(a.X), a.zd, a.wzT, a.B, a.R, a.n, a.m, a.kp);
   }
-  if (a.n_seg > 0) {
-    if (a.n_seg > (int64_t)kWarps << 30) return cudaErrorInvalidValue;
-    batch_words<KT, G><<<blocks_of(a.n_seg), kWarps * 32, 0, s>>>(
-        a.seg_ptr, a.seg_owner, a.idx, a.vals, a.zd, a.wzT, a.w, a.partial, a.R, a.n, a.m,
-        a.n_seg, a.kp);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (a.R * a.m > (int64_t)kWarps << 30) return cudaErrorInvalidValue;
-  reduce_segments<KT><<<blocks_of(a.R * a.m), kWarps * 32, 0, s>>>(
-      a.owner_seg_ptr, a.partial, a.AT, a.R, a.m, a.n_seg, a.kp);
   return cudaGetLastError();
 }
 
@@ -363,26 +231,16 @@ cudaError_t by_group(int group, const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// One entry point for both passes, on one stream: with word = 0 the row pass
-// writes B (R, n, kp) from X; with word = 1 the word pass writes the segment
-// partials (R, n_seg, kp) and the reduction A^T (R, m, kp) from the word-major
-// segments (seg_ptr, seg_owner, owner_seg_ptr, idx, vals). group is G, a power
-// of two with G * KT <= 16. Returns cudaGetLastError() after the launches (0 on
-// success). The caller checks shapes, index ranges, 16-byte alignment of X's
-// rows and kp (at most 256).
-extern "C" int enstop_em_batch(int word, int x_bf16, int group, const void* X,
-                               const void* zd, const void* wzT, const void* w, void* B,
-                               const void* seg_ptr, const void* seg_owner,
-                               const void* owner_seg_ptr, const void* idx, const void* vals,
-                               void* partial, void* AT, long long R, long long n, long long m,
-                               long long n_seg, int kp, void* stream) {
+// The row pass, on one stream: B (R, n, kp) from X. group is G, a power of two
+// with G * KT <= 16. Returns cudaGetLastError() after the launch (0 on
+// success). The caller checks shapes, 16-byte alignment of X's rows and kp (at
+// most 256).
+extern "C" int enstop_em_batch(int x_bf16, int group, const void* X, const void* zd,
+                               const void* wzT, void* B, long long R, long long n, long long m,
+                               int kp, void* stream) {
   if (R <= 0 || n <= 0 || m <= 0) return (int)cudaSuccess;
-  const Args a{word, x_bf16, X, static_cast<const float*>(zd), static_cast<const float*>(wzT),
-               static_cast<const float*>(w), static_cast<float*>(B),
-               static_cast<const int64_t*>(seg_ptr), static_cast<const int32_t*>(seg_owner),
-               static_cast<const int64_t*>(owner_seg_ptr), static_cast<const int32_t*>(idx),
-               static_cast<const float*>(vals), static_cast<float*>(partial),
-               static_cast<float*>(AT), R, n, m, n_seg, kp};
+  const Args a{x_bf16, X, static_cast<const float*>(zd), static_cast<const float*>(wzT),
+               static_cast<float*>(B), R, n, m, kp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (kp <= 0) err = cudaErrorInvalidValue;

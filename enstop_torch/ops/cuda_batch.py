@@ -7,9 +7,10 @@ The functions take the JAX functions' arguments without the TPU tile shape
 ``wzs`` (R, kp, m), ``ws`` (R, n) or None. ``batched_accumulators`` returns
 the raw ``(A (R, kp, m), B (R, n, kp))``, A weighted and B never. On a CPU
 tensor it computes the plain version (:func:`.em.batched_accumulators_dense`);
-on a CUDA tensor it launches the kernel (``csrc/em_batch.cu``: the row pass
-for B, counted as ``"batch"``, and the word pass for A over the word-major
-nonzeros ``word``, counted as ``"batch_word"``) or raises. ``batched_em_step``
+on a CUDA tensor it launches the kernels or raises: the row pass of
+``csrc/em_batch.cu`` for B, counted as ``"batch"``, and for A the word pass of
+``csrc/em_sparse.cu`` over the word-major nonzeros ``word``, all R runs in
+one launch, counted as ``"batch_word"``. ``batched_em_step``
 normalises outside the kernel, as JAX does; ``batched_em_fit`` runs a fixed
 number of steps, with no log-likelihood, no tests and no early stop, as in
 JAX.
@@ -24,6 +25,10 @@ precision class to fp32.
 only, so every run and every step shares one; ``batched_em_fit`` builds it
 once when it is not given.
 
+Each run's A and B are those of a single-run ``em_accumulators_fused`` bit
+for bit: the row pass keeps the dense B pass's order of operations, and the
+word pass walks each run as a run of its own.
+
 ``EnsembleTopics`` does not use this path: as in the JAX package, it fits
 each bootstrap on its own, with per-run early stopping.
 """
@@ -36,7 +41,7 @@ import torch
 from . import em as em_ops
 from ._build import LAUNCHES, library
 from .cuda_em import _check_precision, _on_cpu, word_side_of
-from .cuda_sparse import MAX_KP
+from .cuda_sparse import MAX_KP, launch_pass
 from .data import resolve_device
 
 __all__ = ["group_size", "batch_rows", "batch_words", "batched_accumulators",
@@ -47,10 +52,10 @@ _GROUP_FLOATS = 16  # G * KT at most (csrc/em_batch.cu: kGroupFloats)
 
 
 def group_size(R, kp):
-    """Runs one warp takes at once: the least power of two that holds all R
-    runs, capped at ``16 // KT`` (KT = ceil(kp / 32) rounded up to a power of
-    two, topics a lane), so a lane holds at most 16 factor values and 16
-    accumulators."""
+    """Runs one warp of the row pass takes at once: the least power of two
+    that holds all R runs, capped at ``16 // KT`` (KT = ceil(kp / 32) rounded
+    up to a power of two, topics a lane), so a lane holds at most 16 factor
+    values and 16 accumulators."""
     kt = 1 if kp <= 32 else 2 if kp <= 64 else 4 if kp <= 128 else 8
     g = 1
     while g < min(R, _GROUP_FLOATS // kt):
@@ -102,24 +107,22 @@ def batch_rows(X, zds, wzT):
                          f"(padded width {m})")
     R, kp = _check_tables(zds, wzT, n, m, X.device)
     B = torch.empty((R, n, kp), dtype=torch.float32, device=X.device)
-    _launch("batch", X.device, 0, int(X.dtype == torch.bfloat16), group_size(R, kp),
-            X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), None, B.data_ptr(), None, None, None,
-            None, None, None, None, R, n, m, 0, kp)
+    _launch("batch", X.device, int(X.dtype == torch.bfloat16), group_size(R, kp),
+            X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), B.data_ptr(), R, n, m, kp)
     return B
 
 
 def batch_words(word, zds, wzT, ws):
     """The word pass: ``A^T`` (R, m, kp) over the word-major ``word`` side of
     X, from the run tables ``zds`` (R, n, kp), ``wzT`` (R, m, kp) and the
-    document weights ``ws`` (R, n)."""
+    document weights ``ws`` (R, n): the sparse word pass, one launch for all
+    runs."""
     m, n = word.n_owner, word.n_index
     R, kp = _check_tables(zds, wzT, n, m, word.device, ws)
-    partial = torch.empty((R, word.n_seg, kp), dtype=torch.float32, device=word.device)
-    AT = torch.empty((R, m, kp), dtype=torch.float32, device=word.device)
-    _launch("batch_word", word.device, 1, 0, group_size(R, kp), None, zds.data_ptr(),
-            wzT.data_ptr(), ws.data_ptr(), None, word.seg_ptr.data_ptr(),
-            word.seg_owner.data_ptr(), word.owner_seg_ptr.data_ptr(), word.idx.data_ptr(),
-            word.vals.data_ptr(), partial.data_ptr(), AT.data_ptr(), R, n, m, word.n_seg, kp)
+    if R > 65535:
+        raise ValueError(f"the word pass takes at most 65535 runs a launch, not {R}")
+    AT, _ = launch_pass(word, zds, wzT, ws, True)
+    LAUNCHES["batch_word"] += 1
     return AT
 
 

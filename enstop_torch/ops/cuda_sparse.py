@@ -16,7 +16,8 @@ on the device with torch from a COO sorted by owner; nothing loops in Python.
 ``csrc/em_sparse.cu``. On a CPU tensor each computes its plain PyTorch
 version (``word_pass_plain``, ``doc_pass_plain``: gathers and
 ``index_add_``, on any device); on a CUDA tensor it launches the kernel or
-raises. ``CALLS`` counts calls of the plain versions.
+raises. ``CALLS`` counts calls of the plain versions. :func:`walk_shape`
+picks the kernel's lane groups for a topic count.
 """
 
 from __future__ import annotations
@@ -25,11 +26,20 @@ import torch
 
 from ._build import LAUNCHES, library
 
-__all__ = ["SEG_LEN", "Side", "build_side", "word_pass", "doc_pass", "word_pass_plain",
-           "doc_pass_plain", "LAUNCHES", "CALLS"]
+__all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk_shape",
+           "launch_pass", "word_pass", "doc_pass", "word_pass_plain", "doc_pass_plain",
+           "LAUNCHES", "CALLS"]
 
-SEG_LEN = 128  # entries of one segment at most: one warp walks them
-MAX_KP = 256   # the kernel holds at most 8 topics per lane in registers
+# entries of one segment at most: one warp walks them. Longer segments shorten
+# the serial sum of a frequent owner's partial rows (a Zipf head word holds
+# nearly every document); 512 measured best on an H100 (scripts/torch_sparse_sweep.py)
+SEG_LEN = 512
+MAX_KP = 256
+# (L, TPL): L lanes an entry, TPL topics a lane. The shapes the kernel is built
+# at for every topic count (csrc/em_sparse.cu: kShapes), and those built for
+# kp % 4 == 0 only, which the sweep over L times (kSweepShapes).
+WALK_SHAPES = ((1, 4), (1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (32, 8))
+SWEEP_SHAPES = ((1, 20), (1, 24), (2, 12), (8, 4), (8, 16), (32, 4))
 _TINY = 1e-30
 
 CALLS = {"word_pass": 0, "doc_pass": 0}
@@ -97,6 +107,14 @@ def build_side(owner, idx, vals, n_owner, n_index):
                 seg_ptr, seg_owner.to(torch.int32), owner_seg_ptr, n_owner, n_index)
 
 
+def walk_shape(kp):
+    """The kernel's ``(L, TPL)`` for ``kp`` topics: the first of
+    ``WALK_SHAPES`` with ``L * TPL >= kp``."""
+    if not 0 < kp <= MAX_KP:
+        raise ValueError(f"topic count {kp} must be in 1..{MAX_KP}")
+    return next((L, tpl) for L, tpl in WALK_SHAPES if L * tpl >= kp)
+
+
 def _bf16(a):
     """Round to bfloat16 and widen back to float32."""
     return a.to(torch.bfloat16).float()
@@ -161,29 +179,42 @@ def _pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r=False):
     w = _ones_if_none(w, zd)
     if _check(side, zd, wzT, w, word):
         return _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r)
-    kp = zd.shape[1]
-    if not 0 < kp <= MAX_KP:
-        raise ValueError(f"topic count {kp} must be in 1..{MAX_KP}")
     if any(t.dtype != torch.float32 for t in (zd, wzT, w)):
         raise TypeError("factors and weights must be float32")
-    zd, wzT, w = zd.contiguous(), wzT.contiguous(), w.contiguous()
+    out, ll_seg = launch_pass(side, zd.contiguous(), wzT.contiguous(), w.contiguous(), word,
+                              thresh, compute_ll, bf16r)
+    LAUNCHES[name + ("_bf16r" if bf16r else "_thresh" if thresh is not None else "")] += 1
+    return out, ll_seg.sum()  # the per-segment LL partials, summed in a fixed order
+
+
+def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, bf16r=False):
+    """Launch one pass over ``side`` for R runs that share it: contiguous
+    float32 CUDA tables ``zd`` (R, n, kp) or (n, kp), ``wzT`` (R, m, kp) or
+    (m, kp) and ``w`` (R, n) or (n,), shapes checked by the caller. Returns the
+    raw accumulator (R, n_owner, kp) or (n_owner, kp) and the per-segment LL
+    partials (R, n_seg) or (n_seg,), empty with ``compute_ll=False``."""
+    runs = zd.shape[:-2]  # () for one run, (R,) for R
+    R, kp = (runs[0] if runs else 1), zd.shape[-1]
+    lanes, tpl = walk_shape(kp)
     dev = zd.device
-    partial = torch.empty((side.n_seg, kp), dtype=torch.float32, device=dev)
-    ll_seg = torch.empty((side.n_seg if compute_ll else 0,), dtype=torch.float32, device=dev)
-    out = torch.empty((side.n_owner, kp), dtype=torch.float32, device=dev)
+    partial = torch.empty((R, side.n_seg, kp), dtype=torch.float32, device=dev)
+    ll_seg = torch.empty((*runs, side.n_seg if compute_ll else 0), dtype=torch.float32,
+                         device=dev)
+    out = torch.empty((*runs, side.n_owner, kp), dtype=torch.float32, device=dev)
     fn = library("em_sparse").enstop_em_sparse
     with torch.cuda.device(dev):
-        err = fn(int(word), int(thresh is not None), int(compute_ll), int(bf16r),
-                 side.seg_ptr.data_ptr(), side.seg_owner.data_ptr(),
+        err = fn(int(word), int(thresh is not None), int(compute_ll), int(bf16r), lanes, tpl,
+                 R, side.seg_ptr.data_ptr(), side.seg_owner.data_ptr(),
                  side.owner_seg_ptr.data_ptr(), side.idx.data_ptr(), side.vals.data_ptr(),
                  zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
                  0.0 if thresh is None else float(thresh),
                  partial.data_ptr(), ll_seg.data_ptr(), out.data_ptr(),
-                 side.n_seg, side.n_owner, kp, torch.cuda.current_stream(dev).cuda_stream)
+                 side.n_seg, side.n_owner, side.n_index, kp,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"em_sparse {name} launch failed: cudaError {err}")
-    LAUNCHES[name + ("_bf16r" if bf16r else "_thresh" if thresh is not None else "")] += 1
-    return out, ll_seg.sum()  # the per-segment LL partials, summed in a fixed order
+        raise RuntimeError(f"em_sparse {'word' if word else 'doc'} pass launch failed: "
+                           f"cudaError {err}")
+    return out, ll_seg
 
 
 def word_pass(side, zd, wzT, w=None, thresh=None, compute_ll=True, bf16r=False):

@@ -14,13 +14,15 @@ row pass for B, the word pass for A):
   walks X, and each segment, 16 / G times);
 * ``split``: R = 16 as 16 / G launches of G runs each, so that each launch's
   factor tables are G runs' (G = 1, 2, 4, 8): the same work per warp as
-  ``forced_group`` at that G, a smaller working set;
+  ``forced_group`` at that G, a smaller working set (the group size is the
+  row pass's: the word pass is the sparse word pass with the runs on its
+  grid, one walk a run, so G does not reach it);
 * ``single``: one run's B pass (``refit_accumulators_fused``), word pass and
   whole ``em_accumulators_fused``, for the sequential baseline;
 * ``sass``: the instructions of the main path's kernel instances (kp <= 32)
   as ``cuobjdump -sass`` lists them, all and by opcode family (SHFL, MUFU,
-  LDG). The row and word passes at G = 16 and G = 1 differ by 15 copies of
-  one run's unrolled work, so ``per_run`` is their difference over 15 (the
+  LDG). The row pass at G = 16 and G = 1 differs by 15 copies of one run's
+  unrolled work, so ``per_run`` is the difference over 15 (the
   divergent-path copies of the shuffles, which a converged warp never runs,
   included). The listings themselves go to ``--out`` with ``.sass`` for
   ``.json``; the G = 2 row pass is the shortest to read.
@@ -76,10 +78,8 @@ SASS_INSTANCES = {
     "batch_rows_g16": "batch_rowsI13__nv_bfloat16Li1ELi16EE",
     "batch_rows_g2": "batch_rowsI13__nv_bfloat16Li1ELi2EE",
     "batch_rows_g1": "batch_rowsI13__nv_bfloat16Li1ELi1EE",
-    "batch_words_g16": "batch_wordsILi1ELi16EE",
-    "batch_words_g1": "batch_wordsILi1ELi1EE",
     "dense_b_pass": "em_accumulateI13__nv_bfloat16Li1ELb1ELb0ELb0EE",
-    "word_pass": "segment_passILi1ELb1ELb0ELb0ELb0EE",
+    "word_pass": "segment_passILi4ELi8ELi4ELb1ELb0ELb0EE",  # the walk at kp = 24
 }
 
 
@@ -100,7 +100,7 @@ def sass_counts(listing):
                         r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", block))
                     counts[key] = {"all": sum(ops.values()),
                                    **{op: ops[op] for op in ("SHFL", "MUFU", "LDG")}}
-    for pass_name in ("batch_rows", "batch_words"):
+    for pass_name in ("batch_rows",):
         g16, g1 = counts[pass_name + "_g16"], counts[pass_name + "_g1"]
         counts[pass_name + "_per_run"] = {op: (g16[op] - g1[op]) / 15 for op in g16}
     listing.write_text("".join(blocks))

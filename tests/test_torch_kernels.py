@@ -16,7 +16,8 @@ version than the fp32 plain accumulators, so a kernel that skips the
 roundings fails. The batched kernel (#10) holds A and B to 1e-4 of the
 largest entry, as the dense fp32 modes do, repeats bit for bit, and gives
 each run the bits of a single-run ``em_accumulators_fused`` (the same
-operations in the same order).
+operations in the same order: B by the row pass, A by the sparse word pass
+over a grid of runs).
 """
 
 import numpy as np
@@ -245,14 +246,65 @@ def test_sparse_passes_match_plain(cuda, word, weighted, thresh, compute_ll):
         assert float(ll) == 0.0
 
 
-@pytest.mark.parametrize("k", [3, 40, 130])
-def test_sparse_pass_topic_widths(cuda, k):
-    prep, zd, wzT, w = _sparse_problem(cuda, True, k=k, seed=k)
-    for side, kernel, plain in ((prep.word, cuda_sparse.word_pass, cuda_sparse.word_pass_plain),
-                                (prep.doc, cuda_sparse.doc_pass, cuda_sparse.doc_pass_plain)):
-        for got, want in zip(kernel(side, zd, wzT, w, thresh=1e-3),
-                             plain(side, zd, wzT, w, thresh=1e-3)):
-            _close(got, want, 1e-5)
+def _segment_problem(device, kp, seed):
+    """A square layout whose owners hold 1, E - 1, E, E + 1, 127, 128, 129,
+    S - 1, S, S + 1 (two segments), 0 and 2 S + 44 (three) entries, E the
+    kernel's entries a warp at ``kp`` and S the segment length, and factor
+    tables of ``kp`` topics shaped like a fitted model's: one
+    :class:`~.cuda_sparse.Side` serves both passes (as many owners as
+    indices)."""
+    rng = np.random.default_rng(seed)
+    E = 32 // cuda_sparse.walk_shape(kp)[0]
+    S = cuda_sparse.SEG_LEN
+    counts = [1, max(E - 1, 1), E, E + 1, 127, 128, 129, S - 1, S, S + 1, 0, 2 * S + 44]
+    N = 2 * S + 64
+    owner = np.repeat(np.arange(len(counts)), counts)
+    idx = np.concatenate([np.sort(rng.choice(N, c, replace=False)) for c in counts])
+    vals = rng.integers(1, 6, owner.size).astype(np.float32)
+    side = cuda_sparse.build_side(torch.from_numpy(owner).to(device),
+                                  torch.from_numpy(idx).to(device),
+                                  torch.from_numpy(vals).to(device), N, N)
+    zd = rng.dirichlet(np.full(kp, 0.3), N).astype(np.float32)
+    wzT = rng.random((N, kp)).astype(np.float32) ** 4 + 1e-4
+    wzT /= wzT.sum(0, keepdims=True)
+    w = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    return side, *(torch.from_numpy(a).to(device) for a in (zd, wzT, w))
+
+
+# (word pass, threshold, bf16r): each mode the kernel has
+SPARSE_MODES = {"word": (True, None, False), "word_thresh_1e-16": (True, 1e-16, False),
+                "word_thresh_1e-3": (True, 1e-3, False), "word_bf16r": (True, None, True),
+                "doc": (False, None, False), "doc_thresh_1e-16": (False, 1e-16, False),
+                "doc_thresh_1e-3": (False, 1e-3, False)}
+
+
+@pytest.mark.parametrize("k", [1, 3, 20, 24, 32, 33, 40, 104, 130, 256])
+@pytest.mark.parametrize("mode", list(SPARSE_MODES))
+def test_sparse_pass_topic_widths(cuda, k, mode):
+    """Every mode at every lane-group shape, with segments of 1, E - 1, E,
+    E + 1, 127, 128, 129 and up to SEG_LEN entries and an empty owner: held to
+    the plain version at 1e-5, and bit for bit on repeat, LL on and off,
+    weighted or not."""
+    word, thresh, bf16r = SPARSE_MODES[mode]
+    side, zd, wzT, w_all = _segment_problem(cuda, k, seed=k)
+    kernel = cuda_sparse.word_pass if word else cuda_sparse.doc_pass
+    plain = cuda_sparse.word_pass_plain if word else cuda_sparse.doc_pass_plain
+    extra = {"bf16r": True} if bf16r else {}
+    for weighted in (False, True):
+        w = w_all if weighted else None
+        out0, ll0 = plain(side, zd, wzT, w, thresh=thresh, **extra)
+        for compute_ll in (False, True):
+            out, ll = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll, **extra)
+            again, ll_again = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll,
+                                     **extra)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again) and torch.equal(ll, ll_again)
+            assert float(out[10].abs().sum()) == 0  # the owner with no entries
+            _close(out, out0, 1e-5)
+            if compute_ll:
+                _close(ll, ll0, 1e-5)
+            else:
+                assert float(ll) == 0.0
 
 
 @pytest.mark.parametrize("precision", ["default", "fast"])

@@ -143,7 +143,8 @@ def test_threshold_fires_and_changes_the_step():
 
 def test_layout_with_empty_rows_columns_and_a_long_column():
     rng = np.random.RandomState(2)
-    n, m = 300, 20
+    L = cuda_sparse.SEG_LEN
+    n, m = 2 * L + 44, 20
     dense = (rng.rand(n, m) < 0.1) * rng.randint(1, 5, (n, m))
     dense[:, 0] = rng.randint(1, 4, n)  # one word in every document: 3 segments
     dense[7] = 0                        # an empty document
@@ -151,7 +152,6 @@ def test_layout_with_empty_rows_columns_and_a_long_column():
     X = sp.csr_matrix(dense.astype(np.float32))
     prep = port_sell.prepare_sell(X, standardize=False, device="cpu")
     assert prep.shape == (n, m) and prep.nnz == X.nnz and prep.backend == "sparse"
-    L = cuda_sparse.SEG_LEN
     for side, want in ((prep.doc, dense), (prep.word, dense.T)):
         lengths = side.seg_ptr.diff().numpy()
         assert np.all((lengths > 0) & (lengths <= L))
@@ -240,3 +240,30 @@ def test_word_pass_gives_the_dense_steps_A(bf16r):
     A = plain(Xt, _t(zd), _t(wz), _t(w))[0]
     err = float((AT.t() - A).abs().max() / A.abs().max())
     assert err <= (1e-3 if bf16r else 1e-5), err
+
+
+def test_walk_shape_is_a_built_shape_for_every_topic_count():
+    """``walk_shape(kp)`` names, for every kp the kernel takes, a shape the
+    kernel is built at (``kShapes`` in ``em_sparse.cu``, for either chunk
+    width) whose lane groups divide the warp and cover kp topics, with at most
+    16 topics a lane in registers; the sweep's shapes are the source's too."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_sparse.__file__).parent / "csrc" / "em_sparse.cu").read_text()
+
+    def built(name):
+        body = re.search(name + r"\[\]\[2\] = \{(.*?)\};", src, re.S).group(1)
+        return tuple((int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", body))
+
+    assert built("kShapes") == cuda_sparse.WALK_SHAPES
+    assert built("kSweepShapes") == cuda_sparse.SWEEP_SHAPES
+    for kp in range(1, cuda_sparse.MAX_KP + 1):
+        L, tpl = cuda_sparse.walk_shape(kp)
+        assert (L, tpl) in cuda_sparse.WALK_SHAPES, kp
+        assert 32 % L == 0 and L * tpl >= kp and tpl <= 16, (kp, L, tpl)
+    for L, tpl in cuda_sparse.SWEEP_SHAPES:
+        assert 32 % L == 0 and tpl % 4 == 0
+    for kp in (0, cuda_sparse.MAX_KP + 1):
+        with pytest.raises(ValueError):
+            cuda_sparse.walk_shape(kp)
