@@ -33,7 +33,11 @@ launch counts set to 0 just before it and read just after:
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
 24 dense) with the registers and spill stores of its instances, and fails if
-one of them spills. It checks that every kernel of each path was launched,
+one of them spills; the same for the dense row walk's instances
+(``em_accumulate`` and ``batch_rows``, ``csrc/row_walk.cuh``) at kp = 20, 24
+and 104, failing on a spill at kp = 20 and 24. Phase 2 also times the dense
+kernel alone (B + LL and B only), without the EM step's word pass. It checks
+that every kernel of each path was launched,
 that no plain op was called, and that the results agree with the plain path
 on the card, and it holds the ensemble's combine stage on the card (Hellinger matrix, merge, UMAP
 layout) against the host. Prints one line per phase, then a JSON line with
@@ -388,6 +392,20 @@ def sparse_instance(mangled):
             + ("_bf16r" if bf16r else ""))
 
 
+def row_instance(mangled):
+    """``"<kernel>_<x dtype>_L<L>_TPL<TPL>_V<V>[_B][_LL][_bf16r]"`` for a mangled
+    ``em_accumulate`` or ``batch_rows`` instance (``csrc/row_walk.cuh``), else
+    None."""
+    m = re.search(r"(em_accumulate|batch_rows)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E"
+                  r"(?:Lb([01])ELb([01])ELb([01])E)?E", mangled)
+    if m is None:
+        return None
+    kernel, xt, L, tpl, v, with_b, ll, bf16r = m.groups()
+    return (f"{kernel}_{'bf16' if xt != 'f' else 'fp32'}_L{L}_TPL{tpl}_V{v}"
+            + ("_B" if with_b != "0" else "") + ("_LL" if ll == "1" else "")
+            + ("_bf16r" if bf16r == "1" else ""))
+
+
 def batch_problem(X, R, k, seed):
     """R runs' random padded factors and weights, stacked."""
     runs = [problem(X, k, True, seed + r) for r in range(R)]
@@ -508,16 +526,17 @@ def main():
                       f"{json.dumps(found)}")
                 check(len(found) == 5 and all(spill == 0 for _, spill in found.values()),
                       f"the em_sparse instances at kp = {kp} are built and do not spill")
-        if name == "em_batch":
-            instances = ptxas_instances(build["report"])
-            for R, kp in ((BATCH_RUNS, 24), (4, 104)):
-                kt, g = -(-kp // 32), cuda_batch.group_size(R, kp)
-                kt = 1 << (kt - 1).bit_length()
-                regs, spill = next(v for key, v in instances.items()
-                                   if "batch_rowsI13__nv_bfloat16" in key
-                                   and f"Li{kt}ELi{g}EE" in key)
-                print(f"  em_batch at R = {R}, kp = {kp}: group size G = {g}, KT = {kt}; "
-                      f"batch_rows {regs} registers, {spill} B spill stores")
+        if name in ("em_dense", "em_batch"):
+            instances = {row_instance(key): v for key, v in
+                         ptxas_instances(build["report"]).items() if row_instance(key)}
+            for kp in (20, 24, 104):  # the main paths' topic counts, and R = 4's k = 100
+                L, tpl = cuda_sparse.walk_shape(kp)
+                shape = f"L{L}_TPL{tpl}_V4_"
+                found = {key: v for key, v in instances.items() if shape in key}
+                print(f"  {name} at kp = {kp}: walk shape L = {L}, TPL = {tpl}; registers, "
+                      f"spill store bytes by instance {json.dumps(found)}")
+                check(found and (kp > 24 or all(spill == 0 for _, spill in found.values())),
+                      f"the {name} instances at kp = {kp} are built and do not spill")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
 
     # -- phase 2: each dense kernel against its plain version -----------------
@@ -562,6 +581,12 @@ def main():
     for name, (ms, plain_ms) in timing.items():
         print(f"  time at 20NG, bf16 X: {name} {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    # the dense kernel alone, as an EM step launches it (B + LL on a test step,
+    # B only otherwise): the EM step's accumulators above add the word pass
+    for label, compute_ll in (("B + LL", True), ("B only", False)):
+        ms = cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w1, True, compute_ll), 50)
+        print(f"  time at 20NG, bf16 X: dense kernel alone ({cuda_em.ROW_STREAM}), {label}: "
+              f"{ms:.4f} ms, bound {bounds['refit'][0]:.4f} ms ({bounds['refit'][1]})")
 
     # -- phase 2b: the bf16r modes (precision="fast") against their plain versions
     fast_worst = compare_fast_kernels("small 203x650 k=20", torch.from_numpy(small).to(dev), 20,

@@ -18,6 +18,30 @@ from ..utils import _check_sample_weight, standardize_input
 _JAX_BACKENDS = ("xla", "pallas")
 
 
+class NotFittedError(ValueError, AttributeError):
+    """An estimator was used before it was fitted (scikit-learn's
+    ``NotFittedError`` has the same two bases)."""
+
+
+def check_counts(X, dtype=None):
+    """A CSR copy of a 2-D, numeric, finite count matrix (``dtype`` casts),
+    the checks of the JAX package's ``check_array``; raises ``ValueError``."""
+    if sp.issparse(X):
+        X = sp.csr_matrix(X)
+    else:
+        X = np.asarray(X)
+        if X.ndim != 2:
+            raise ValueError(f"Expected a 2-D count matrix, got {X.ndim}-D input")
+        X = sp.csr_matrix(X)
+    if not np.issubdtype(X.dtype, np.number):
+        raise ValueError(f"Count matrix must be numeric, not {X.dtype}")
+    if dtype is not None:
+        X = X.astype(dtype)
+    if np.issubdtype(X.dtype, np.floating) and not np.all(np.isfinite(X.data)):
+        raise ValueError("Input contains NaN or infinity")
+    return X
+
+
 def validate_corpus(X, sample_weight=None):
     """Dense/sparse 2-D check + standardize_input + non-negativity check +
     CSR coercion; returns ``(X_csr, sample_weight)``."""
@@ -104,7 +128,7 @@ class TopicModelBase:
     def _validate_transform_input(self, X):
         """Fitted-state + feature-count guard shared by every transform."""
         if not hasattr(self, "components_"):
-            raise AttributeError(
+            raise NotFittedError(
                 f"This {type(self).__name__} instance is not fitted yet; call "
                 "fit (or load a checkpoint) before transform"
             )
@@ -144,13 +168,20 @@ class TopicModelBase:
     def load(cls, path, device=None):
         """Restore an estimator from a checkpoint written by :meth:`save` here
         or by the JAX package's ``save()``. ``device`` overrides the
-        constructor default. A checkpoint saved by another class is refused."""
+        constructor default. ``TopicModelBase.load`` builds the class the
+        checkpoint records; a subclass refuses a checkpoint of another class."""
         with np.load(path, allow_pickle=False) as z:
             saved_class = bytes(z["class_name"]).decode()
-            if saved_class != cls.__name__:
+            if cls is TopicModelBase:
+                cls = _estimator_class(saved_class)
+                if cls is None:
+                    raise ValueError(
+                        f"Checkpoint was saved by unknown estimator class {saved_class!r}")
+            elif saved_class != cls.__name__:
                 raise ValueError(
-                    f"Checkpoint at {str(path)!r} was saved by {saved_class!r}; "
-                    f"it cannot be loaded with {cls.__name__}.load(...)"
+                    f"Checkpoint at {str(path)!r} was saved by {saved_class!r}; load it "
+                    f"with {saved_class}.load(...) (or TopicModelBase.load(...) to "
+                    f"dispatch), not {cls.__name__}.load(...)"
                 )
             params = json.loads(bytes(z["params_json"]).decode())
             history = z["history_"] if "history_" in z else None
@@ -178,3 +209,12 @@ class TopicModelBase:
     def warm_start_factors(self):
         """The ``(P(z|d), P(w|z))`` tuple accepted by ``init=`` to resume EM."""
         return (np.asarray(self.embedding_), np.asarray(self.components_))
+
+
+def _estimator_class(name):
+    """The port's estimator class a checkpoint's recorded name stands for, or
+    None."""
+    from .ensemble import EnsembleTopics
+    from .plsa import PLSA
+
+    return {c.__name__: c for c in (PLSA, EnsembleTopics)}.get(name)

@@ -31,7 +31,6 @@ import time
 import warnings
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
 from ..cluster.distances import (all_pairs_hellinger_distance, all_pairs_kl_divergence,
@@ -47,7 +46,7 @@ from ..ops.driver import (PreparedCounts, _warn_fast_unsupported, fit_padded, ke
 from ..ops.init import plsa_init
 from ..ops.sell import PreparedSell, prepare_sell, sell_fit
 from ..utils import _check_sample_weight, check_random_state
-from .base import TopicModelBase
+from .base import TopicModelBase, check_counts
 
 __all__ = ["EnsembleTopics", "ensemble_fit", "ensemble_of_topics", "plsa_topics",
            "resolve_parallelism"]
@@ -61,24 +60,6 @@ def _check_model(model):
             "model='nmf' needs the NMF solver, which is not ported yet (ROADMAP.md)")
     if model != "plsa":
         raise ValueError('Model must be one of "plsa" or "nmf"')
-
-
-def _check_counts(X, dtype=None):
-    """A CSR copy of a 2-D, numeric, finite count matrix (``dtype`` casts)."""
-    if sp.issparse(X):
-        X = sp.csr_matrix(X)
-    else:
-        X = np.asarray(X)
-        if X.ndim != 2:
-            raise ValueError(f"Expected a 2-D count matrix, got {X.ndim}-D input")
-        X = sp.csr_matrix(X)
-    if not np.issubdtype(X.dtype, np.number):
-        raise ValueError(f"Count matrix must be numeric, not {X.dtype}")
-    if dtype is not None:
-        X = X.astype(dtype)
-    if np.issubdtype(X.dtype, np.floating) and not np.all(np.isfinite(X.data)):
-        raise ValueError("Input contains NaN or infinity")
-    return X
 
 
 def _sync(device):
@@ -484,7 +465,7 @@ def ensemble_fit(
                else prepared.device_array.device)
     else:
         # raw float32 counts, not l1-normalised: the ensemble fits the counts
-        X = _check_counts(X, dtype=np.float32)
+        X = check_counts(X, dtype=np.float32)
         dev = resolve_device(device)
         prepared = None
         if parallelism == "weights" and backend == "sparse":
@@ -623,7 +604,7 @@ class EnsembleTopics(TopicModelBase):
                 "instead"
             )
         if not isinstance(X, (PreparedCounts, PreparedSell)):
-            X = _check_counts(X)
+            X = check_counts(X)
             if np.any(X.data < 0):
                 raise ValueError(
                     "EnsembleTopics is only valid for matrices with non-negative "
@@ -664,7 +645,7 @@ class EnsembleTopics(TopicModelBase):
     def transform(self, X, y=None):
         """Embed new documents against the stable topics (a refit of
         ``P(z|d)`` only: 50 iterations, a test every 5, tolerance 1e-3)."""
-        X = _check_counts(X)
+        X = check_counts(X)
         self._validate_transform_input(X)
         return plsa_refit(
             X,

@@ -11,12 +11,12 @@ PyTorch.
 from __future__ import annotations
 
 import numpy as np
-import scipy.sparse as sp
 
 from ..ops.driver import PreparedCounts, plsa_fit, plsa_refit
 from ..ops.sell import PreparedSell
 from ..utils import _check_sample_weight, check_random_state
-from .base import TopicModelBase, reinsert_zero_rows, split_zero_rows, validate_corpus
+from .base import (TopicModelBase, check_counts, reinsert_zero_rows, split_zero_rows,
+                   validate_corpus)
 
 
 class PLSA(TopicModelBase):
@@ -110,7 +110,7 @@ class PLSA(TopicModelBase):
     def transform(self, X, y=None):
         """Embed new documents against the fitted topics (a refit of
         ``P(z|d)`` only: 50 iterations, a test every 5, tolerance 1e-3)."""
-        X = X.tocsr() if sp.issparse(X) else sp.coo_matrix(np.asarray(X))
+        X = check_counts(X)
         self._validate_transform_input(X)
         random_state = check_random_state(self.transform_random_seed)
         sample_weight = _check_sample_weight(None, X, dtype=np.float32)

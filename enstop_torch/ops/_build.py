@@ -2,8 +2,10 @@
 
 ``nvcc`` compiles each source into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), under ``enstop_torch/_build/``
-(git-ignored). The library's name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+(git-ignored). The library's name carries a hash of the source, of every
+header it includes from ``csrc`` (``#include "..."``, followed through the
+headers) and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 :func:`build_all` runs one ``nvcc`` per source, all started together.
 
 ``LAUNCHES`` counts kernel launches by kernel and mode; each wrapper raises
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,8 +44,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "em_dense": {
-        # x_bf16, bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, stream
-        "enstop_em_dense": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P),
+        # x_bf16, bf16_r, with_b, compute_ll, lanes, tpl, warps, stages, window, queue,
+        # X, zd, wzT, w, B, ll_part, n, m, kp, stream
+        "enstop_em_dense": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _LL, _LL, _I, _P),
     },
     "em_sparse": {
         # word, thresholded, compute_ll, bf16_r, lanes, tpl, runs, seg_ptr, seg_owner,
@@ -52,8 +57,10 @@ _SIGNATURES = {
                              _F, _P, _P, _P, _LL, _LL, _LL, _I, _P),
     },
     "em_batch": {
-        # x_bf16, group, X, zd, wzT, B, R, n, m, kp, stream
-        "enstop_em_batch": (_I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P),
+        # x_bf16, lanes, tpl, warps, stages, window, queue, X, zd, wzT, B, R, n, m, kp,
+        # stream
+        "enstop_em_batch": (_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I,
+                            _P),
     },
 }
 
@@ -77,13 +84,37 @@ def _nvcc():
     )
 
 
+def _local_includes(path):
+    """The ``csrc`` headers that ``path`` includes with quotes, directly or
+    through another such header, each once, in order of first inclusion."""
+    found, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        for inc in re.findall(r'^\s*#\s*include\s*"([^"]+)"', cur.read_text(), re.MULTILINE):
+            header = (cur.parent / inc).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
+def digest(name, csrc=_CSRC):
+    """The hash that names the library of ``csrc/<name>.cu``: its source, the
+    headers it includes and the flags."""
+    src = csrc / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _local_includes(src):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def library(name):
     """The loaded ctypes library built from ``csrc/<name>.cu`` (built if needed)."""
     if name in _loaded:
         return _loaded[name]
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"lib{name}_{digest}.so"
+    so = _BUILD_DIR / f"lib{name}_{digest(name)}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")

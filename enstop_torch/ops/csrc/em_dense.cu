@@ -35,232 +35,135 @@
 // B / ll work only for the nonzero entries. That is exactly the TPU kernel's
 // function: an entry with X = 0 contributes R = 0 to B and 0 to ll
 // (log S_safe is finite). What bounds it is the X stream: 18,848 x 25,088
-// x 2 B = 0.95 GB of bf16 per step, 0.28 ms at 3.35 TB/s. The design keeps
-// everything else off that stream:
-//   * one warp owns one document row. Lanes read X with 16-byte streaming loads
-//     (__ldcs, evict-first, so the factors stay in L2), kUnroll loads in flight
-//     per lane, and mark the nonzeros they find in a bit mask;
-//   * the warp then works through the row's nonzeros together, one lane per
-//     topic (KT topics per lane when kp > 32). The row's zd and its B
-//     accumulator live in registers. The wz column of a nonzero is read from
-//     the transposed copy wzT (m, kp): kp contiguous floats, one coalesced load;
-//     S is a warp shuffle reduction;
-//   * B[i, :] is written once per row: no cross-block reduction, no atomics.
-//     (Accumulating B in shared memory with fp32 atomics instead measured
-//     1.41 ms per refit step on the H100 at the 20NG shape, against 0.40 ms
-//     for the LL-only pass.)
-//   * ll is accumulated by lane 0, summed per block over its warps in order, and
-//     written as one partial per block; the caller sums the partials in order.
-// Nothing is summed with atomics and each block's rows are fixed by the grid,
-// so B and ll are the same from launch to launch. All arithmetic is fp32
-// (IEEE division and logf; built without --use_fast_math). kp is at most 256.
+// x 2 B = 0.95 GB of bf16 per step, 0.28 ms at 3.35 TB/s (0.32 ms measured for
+// the stream alone). The walk over the 2.7 M nonzeros costs about as much SM
+// time again if it is done one nonzero a warp at a time (about 21 SM-cycles
+// and 40 instructions a nonzero), and a warp that walks issues no loads. So the
+// design (row_walk.cuh) keeps the walk off the stream:
+//   * one warp owns one document row and stages it through a ring of windows
+//     in shared memory with asynchronous copies (TMA bulk copies, evict-first,
+//     so the factors stay in L2), stages - 1 windows in flight
+//     while it scans and walks the current one;
+//   * it compacts the window's nonzeros into a queue in shared memory (a
+//     ballot skips empty chunks, a prefix sum places the rest in column
+//     order) and walks the queue with the segment walk's lane groups (L lanes
+//     an entry, E = 32 / L entries at once, one division for E entries, the
+//     next entry's wzT row gathered one step ahead), with the row's zd and its
+//     B accumulators in registers;
+//   * B[i, :] is written once per row: no cross-block reduction, no atomics;
+//   * ll is summed per entry by the first lane of each slot, over the warp by a
+//     fixed xor tree, per block over its warps in order, and written as one
+//     partial per block; the caller sums the partials in order.
+// Every sum has the fixed order of row_walk.cuh's order invariant, so B and ll
+// are the same from launch to launch and whatever the stream's shape. All
+// arithmetic is fp32 (IEEE division and logf; built without --use_fast_math).
+// kp is at most 256.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;    // document rows per block, one warp each
-constexpr int kUnroll = 4;   // 16-byte X loads in flight per lane (VEC * kUnroll <= 32)
-constexpr float kTiny = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
+using row_walk::Args;
 
-// Elements of X in one 16-byte load, and element e of it as fp32.
-template <typename XT>
-struct XVec;
-
-template <>
-struct XVec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static float get(const uint4& v, int e) {
-    const uint32_t word = e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-    return __uint_as_float(word);
-  }
-};
-
-template <>
-struct XVec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static float get(const uint4& v, int e) {
-    const int q = e >> 1;
-    const uint32_t word = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-    // little-endian: the even element is the low half; bf16 is the top half of fp32
-    return __uint_as_float((e & 1) ? (word & 0xffff0000u) : (word << 16));
-  }
-};
-
-// x rounded to bf16 (round to nearest even) and widened back to fp32
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// KT topics per lane: lane l holds topics l, l + 32, ..., l + 32 (KT - 1).
-template <typename XT, int KT, bool WITH_B, bool COMPUTE_LL, bool BF16R>
-__global__ void __launch_bounds__(kWarps * 32)
-em_accumulate(const XT* __restrict__ X, const float* __restrict__ zd,
-              const float* __restrict__ wzT, const float* __restrict__ w,
-              float* __restrict__ B, float* __restrict__ ll_part, int64_t n, int64_t m,
-              int kp) {
-  __shared__ float ll_warp[kWarps];
-  constexpr int VEC = XVec<XT>::kN;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t n_chunks = m / VEC;
-  float ll_acc = 0.f;
-
-  for (int64_t i = (int64_t)blockIdx.x * kWarps + warp; i < n;
-       i += (int64_t)gridDim.x * kWarps) {
-    const float wi = w[i];
-    float zd_r[KT], b_r[KT];
-#pragma unroll
-    for (int t = 0; t < KT; ++t) {
-      const int z = lane + 32 * t;
-      zd_r[t] = z < kp ? zd[i * kp + z] : 0.f;
-      b_r[t] = 0.f;
-    }
-    const uint4* xrow = reinterpret_cast<const uint4*>(X + i * m);
-    for (int64_t base = 0; base < n_chunks; base += 32 * kUnroll) {
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t c = base + lane + u * 32;
-        v[u] = c < n_chunks ? __ldcs(xrow + c) : make_uint4(0u, 0u, 0u, 0u);
-      }
-      // bit u * VEC + e: element e of this lane's load u is nonzero
-      uint32_t mask = 0u;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if ((v[u].x | v[u].y | v[u].z | v[u].w) == 0u) continue;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          if (XVec<XT>::get(v[u], e) != 0.f) mask |= 1u << (u * VEC + e);
-      }
-      // the warp takes the nonzeros one at a time, lowest lane first
-      for (uint32_t busy = __ballot_sync(kFull, mask != 0u); busy;
-           busy = __ballot_sync(kFull, mask != 0u)) {
-        const int src = __ffs(busy) - 1;
-        const int bit = __shfl_sync(kFull, __ffs(mask) - 1, src);
-        const int u = bit / VEC;
-        const int e = bit % VEC;
-        float x_src = 0.f;
-        if (lane == src) {
-          mask &= mask - 1u;
-          uint4 vu = v[0];
-#pragma unroll
-          for (int k = 1; k < kUnroll; ++k)
-            if (k == u) vu = v[k];
-          x_src = XVec<XT>::get(vu, e);
-        }
-        const float x = __shfl_sync(kFull, x_src, src);
-        const int64_t j = (base + src + u * 32) * VEC + e;
-        const float* wz_j = wzT + j * kp;
-        float wz_r[KT];
-        float part = 0.f;
-#pragma unroll
-        for (int t = 0; t < KT; ++t) {
-          const int z = lane + 32 * t;
-          wz_r[t] = z < kp ? __ldg(wz_j + z) : 0.f;
-          part = fmaf(zd_r[t], wz_r[t], part);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part += __shfl_xor_sync(kFull, part, off);
-        const float s_safe = fmaxf(part, kTiny);
-        const float r = BF16R ? bf16r(bf16r(x) / bf16r(s_safe)) : x / s_safe;
-        if (COMPUTE_LL && lane == 0) ll_acc += x * logf(s_safe) * wi;
-        if (WITH_B) {
-#pragma unroll
-          for (int t = 0; t < KT; ++t) b_r[t] = fmaf(r, BF16R ? bf16r(wz_r[t]) : wz_r[t], b_r[t]);
-        }
-      }
-    }
-    if (WITH_B) {
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int z = lane + 32 * t;
-        if (z < kp) B[i * kp + z] = b_r[t];
-      }
-    }
-  }
-
+template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+__global__ void __launch_bounds__(row_walk::kMaxWarps * 32)
+em_accumulate(Args a, float* __restrict__ ll_part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float ll_warp[row_walk::kMaxWarps];
+  float ll = row_walk::walk_rows<XT, L, TPL, V, WITH_B, COMPUTE_LL, BF16R>(a, smem);
   if (COMPUTE_LL) {
-    if (lane == 0) ll_warp[warp] = ll_acc;
+    ll = row_walk::warp_sum(ll);
+    if ((threadIdx.x & 31) == 0) ll_warp[threadIdx.x >> 5] = ll;
     __syncthreads();
     if (threadIdx.x == 0) {
       float total = 0.f;
-      for (int k = 0; k < kWarps; ++k) total += ll_warp[k];
+      for (int k = 0; k < a.warps; ++k) total += ll_warp[k];
       ll_part[blockIdx.x] = total;
     }
   }
 }
 
-// blocks of the grid: one warp per row, capped; the caller sizes the LL
-// partials from the same formula (cuda_em.py:_blocks)
-int64_t grid_of(int64_t n) {
-  const int64_t blocks = (n + kWarps - 1) / kWarps;
-  return blocks < (1 << 30) ? blocks : (1 << 30);
-}
-
-template <typename XT, int KT, bool WITH_B, bool COMPUTE_LL, bool BF16R>
-cudaError_t launch(const void* X, const void* zd, const void* wzT, const void* w,
-                   void* B, void* ll_part, int64_t n, int64_t m, int kp,
-                   cudaStream_t stream) {
-  em_accumulate<XT, KT, WITH_B, COMPUTE_LL, BF16R><<<(unsigned)grid_of(n), kWarps * 32, 0, stream>>>(
-      static_cast<const XT*>(X), static_cast<const float*>(zd),
-      static_cast<const float*>(wzT), static_cast<const float*>(w),
-      static_cast<float*>(B), static_cast<float*>(ll_part), n, m, kp);
+template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+cudaError_t launch(const Args& a, float* ll_part, cudaStream_t s) {
+  const auto kernel = em_accumulate<XT, L, TPL, V, WITH_B, COMPUTE_LL, BF16R>;
+  const size_t bytes = row_walk::smem_bytes(a.warps, a.stages, a.window, a.queue);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)row_walk::blocks_of(a.n, a.warps), a.warps * 32, bytes, s>>>(a, ll_part);
   return cudaGetLastError();
 }
 
-template <typename XT, int KT>
-cudaError_t by_mode(int bf16_r, int with_b, int compute_ll, const void* X, const void* zd,
-                    const void* wzT, const void* w, void* B, void* ll_part, int64_t n,
-                    int64_t m, int kp, cudaStream_t s) {
+// the modes: B + LL, B only, their bf16r forms, and the LL sweep (fp32 only:
+// precision="fast" keeps the fp32 LL)
+template <typename XT, int L, int TPL, int V>
+cudaError_t by_mode(int bf16_r, int with_b, int compute_ll, const Args& a, float* ll_part,
+                    cudaStream_t s) {
   if (with_b) {
     if (bf16_r) {
-      return compute_ll
-          ? launch<XT, KT, true, true, true>(X, zd, wzT, w, B, ll_part, n, m, kp, s)
-          : launch<XT, KT, true, false, true>(X, zd, wzT, w, B, ll_part, n, m, kp, s);
+      return compute_ll ? launch<XT, L, TPL, V, true, true, true>(a, ll_part, s)
+                        : launch<XT, L, TPL, V, true, false, true>(a, ll_part, s);
     }
-    return compute_ll
-        ? launch<XT, KT, true, true, false>(X, zd, wzT, w, B, ll_part, n, m, kp, s)
-        : launch<XT, KT, true, false, false>(X, zd, wzT, w, B, ll_part, n, m, kp, s);
+    return compute_ll ? launch<XT, L, TPL, V, true, true, false>(a, ll_part, s)
+                      : launch<XT, L, TPL, V, true, false, false>(a, ll_part, s);
   }
-  // the LL sweep has no bf16 mode: precision="fast" keeps the fp32 LL
-  if (compute_ll && !bf16_r) {
-    return launch<XT, KT, false, true, false>(X, zd, wzT, w, B, ll_part, n, m, kp, s);
-  }
+  if (compute_ll && !bf16_r) return launch<XT, L, TPL, V, false, true, false>(a, ll_part, s);
   return cudaErrorInvalidValue;
 }
 
+// the instance of shape I of kShapes (then, for bf16 X with V = 4 in the B-only
+// mode, of kSweepShapes) that is (l, tpl)
+template <typename XT, int V, int I>
+cudaError_t by_shape(int l, int tpl, int bf16_r, int with_b, int compute_ll, const Args& a,
+                     float* ll_part, cudaStream_t s) {
+  constexpr int kN = row_walk::kNumShapes;
+  constexpr bool kSweep = V == 4 && sizeof(XT) == 2;
+  if constexpr (I < kN) {
+    constexpr int L = row_walk::kShapes[I][0], TPL = row_walk::kShapes[I][1];
+    if (l == L && tpl == TPL) return by_mode<XT, L, TPL, V>(bf16_r, with_b, compute_ll, a, ll_part, s);
+    return by_shape<XT, V, I + 1>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
+  } else if constexpr (kSweep && I < kN + row_walk::kNumSweepShapes) {
+    constexpr int L = row_walk::kSweepShapes[I - kN][0], TPL = row_walk::kSweepShapes[I - kN][1];
+    if (l == L && tpl == TPL && with_b && !compute_ll && !bf16_r) {
+      return launch<XT, L, TPL, V, true, false, false>(a, ll_part, s);
+    }
+    return by_shape<XT, V, I + 1>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <typename XT>
-cudaError_t by_kp(int bf16_r, int with_b, int compute_ll, const void* X, const void* zd,
-                  const void* wzT, const void* w, void* B, void* ll_part, int64_t n,
-                  int64_t m, int kp, cudaStream_t s) {
-  if (kp <= 32) return by_mode<XT, 1>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, s);
-  if (kp <= 64) return by_mode<XT, 2>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, s);
-  if (kp <= 128) return by_mode<XT, 4>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, s);
-  if (kp <= 256) return by_mode<XT, 8>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m, kp, s);
-  return cudaErrorInvalidValue;
+cudaError_t by_chunk(int vec, int l, int tpl, int bf16_r, int with_b, int compute_ll,
+                     const Args& a, float* ll_part, cudaStream_t s) {
+  return vec ? by_shape<XT, 4, 0>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s)
+             : by_shape<XT, 1, 0>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
 }
 
 }  // namespace
 
 // One entry point for all the modes. Returns cudaGetLastError() after the
-// launch (0 on success). ll_part holds one float per block of the grid
-// (ceil(n / 8), at most 2^30); with COMPUTE_LL off it is not written. The
-// caller checks shapes, 16-byte alignment of X's rows and kp (at most 256).
-extern "C" int enstop_em_dense(int x_bf16, int bf16_r, int with_b, int compute_ll,
-                               const void* X, const void* zd, const void* wzT,
-                               const void* w, void* B, void* ll_part,
-                               long long n, long long m, int kp, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+// launch (0 on success). lanes and tpl are the walk's shape (L, TPL), one of
+// row_walk.cuh's kShapes (or, for bf16 X in the B-only mode with kp % 4 == 0,
+// kSweepShapes) with L * TPL >= kp; warps, stages, window and queue the
+// stream's (row_walk::check). ll_part holds one float
+// per block of the grid (ceil(n / warps)); with COMPUTE_LL off it is not
+// written. The caller checks shapes, 16-byte alignment of X's rows and kp (at
+// most 256).
+extern "C" int enstop_em_dense(int x_bf16, int bf16_r, int with_b, int compute_ll, int lanes,
+                               int tpl, int warps, int stages, int window, int queue,
+                               const void* X, const void* zd, const void* wzT, const void* w,
+                               void* B, void* ll_part, long long n, long long m, int kp,
+                               void* stream) {
+  const Args a{X, static_cast<const float*>(zd), static_cast<const float*>(wzT),
+               static_cast<const float*>(w), static_cast<float*>(B), n, m, 1, kp,
+               warps, stages, window, queue};
+  cudaError_t err = row_walk::check(a, lanes, tpl, x_bf16 ? 8 : 4);
+  if (err != cudaSuccess || n <= 0) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_bf16 ? by_kp<__nv_bfloat16>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part,
-                                    n, m, kp, s)
-             : by_kp<float>(bf16_r, with_b, compute_ll, X, zd, wzT, w, B, ll_part, n, m,
-                            kp, s);
+  const int vec = row_walk::vec_ok(a, tpl);
+  float* llp = static_cast<float*>(ll_part);
+  err = x_bf16 ? by_chunk<__nv_bfloat16>(vec, lanes, tpl, bf16_r, with_b, compute_ll, a, llp, s)
+               : by_chunk<float>(vec, lanes, tpl, bf16_r, with_b, compute_ll, a, llp, s);
   return (int)err;
 }

@@ -46,7 +46,7 @@
 //     is summed. It sums s (and s_used) over its chunks and then over its L
 //     lanes by log2(L) xor shuffles, and divides: one division serves E
 //     entries. cuda_sparse.walk_shape(kp) picks (L, TPL) among the shapes
-//     built below, by measurement on the card.
+//     of lane_walk.cuh, by measurement on the card.
 //   * At the segment's end the E groups' accumulators are summed by a fixed xor
 //     tree over the entry slots, lowest slot bit first: log2(E) steps of TPL
 //     values a segment, not an entry. The steps that would add only slots that
@@ -76,56 +76,16 @@
 // 3.35 TB/s.
 // All arithmetic is fp32 (IEEE division and logf). kp is at most 256.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lane_walk.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // segments (resp. owners) per block, one warp each
-constexpr float kTiny = 1e-30f;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace lane_walk;
 
-// The walk shapes (L, TPL), built with both chunk widths (cuda_sparse.WALK_SHAPES).
-constexpr int kShapes[][2] = {{1, 4}, {1, 8}, {2, 8}, {4, 8}, {8, 8}, {16, 8}, {32, 8}};
 // Built with 16-byte chunks only: the other shapes that the sweep over L times
 // at kp = 20, 24 and 104 (cuda_sparse.SWEEP_SHAPES).
 constexpr int kSweepShapes[][2] = {{1, 20}, {1, 24}, {2, 12}, {8, 4}, {8, 16}, {32, 4}};
-
-// x rounded to bf16 (round to nearest even) and widened back to fp32
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// V consecutive floats: one 16-byte access (V = 4) or one float (V = 1).
-template <int V>
-struct Chunk;
-
-template <>
-struct Chunk<1> {
-  __device__ __forceinline__ static void load(const float* p, float* out) { out[0] = __ldg(p); }
-  __device__ __forceinline__ static void store(float* p, const float* in) { p[0] = in[0]; }
-};
-
-template <>
-struct Chunk<4> {
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = q.x;
-    out[1] = q.y;
-    out[2] = q.z;
-    out[3] = q.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
 
 // L lanes an entry, E = 32 / L entries at once, TPL topics a lane in C = TPL / V
 // chunks of V; compute_ll is the same for every warp of a launch. blockIdx.y is
@@ -365,11 +325,12 @@ cudaError_t by_mode(int word, int thresholded, int bf16_r, const Args& a, cudaSt
                      : launch<L, TPL, V, false, false, false>(a, s);
 }
 
-// the instance of shape I of kShapes (then, with V = 4, of kSweepShapes) that is (l, tpl)
+// the instance of shape I of kShapes (lane_walk.cuh; then, with V = 4, of
+// kSweepShapes) that is (l, tpl)
 template <int V, int I>
 cudaError_t by_shape(int l, int tpl, int word, int thresholded, int bf16_r, const Args& a,
                      cudaStream_t s) {
-  constexpr int kN = sizeof(kShapes) / sizeof(kShapes[0]);
+  constexpr int kN = kNumShapes;
   constexpr int kSweep = V == 4 ? sizeof(kSweepShapes) / sizeof(kSweepShapes[0]) : 0;
   if constexpr (I < kN + kSweep) {
     constexpr int L = I < kN ? kShapes[I][0] : kSweepShapes[I - kN][0];

@@ -26,8 +26,12 @@ only, so every run and every step shares one; ``batched_em_fit`` builds it
 once when it is not given.
 
 Each run's A and B are those of a single-run ``em_accumulators_fused`` bit
-for bit: the row pass keeps the dense B pass's order of operations, and the
-word pass walks each run as a run of its own.
+for bit: the row pass walks each run with the dense kernel's walk under the
+order invariant of ``csrc/row_walk.cuh``, and the word pass walks each run as
+a run of its own. The row pass streams X once for all runs: each warp
+compacts its row's nonzeros into a queue of ``BATCH_STREAM.queue`` entries in
+shared memory and walks it once a run (a row with more nonzeros is streamed
+again for each run after the first).
 
 ``EnsembleTopics`` does not use this path: as in the JAX package, it fits
 each bootstrap on its own, with per-run early stopping.
@@ -40,27 +44,18 @@ import torch
 
 from . import em as em_ops
 from ._build import LAUNCHES, library
-from .cuda_em import _check_precision, _on_cpu, word_side_of
+from .cuda_em import ROW_STREAM, _check_precision, _on_cpu, walk_args, word_side_of
 from .cuda_sparse import MAX_KP, launch_pass
 from .data import resolve_device
 
-__all__ = ["group_size", "batch_rows", "batch_words", "batched_accumulators",
+__all__ = ["BATCH_STREAM", "batch_rows", "batch_words", "batched_accumulators",
            "batched_em_step", "batched_em_fit"]
 
 _TINY = em_ops._TINY
-_GROUP_FLOATS = 16  # G * KT at most (csrc/em_batch.cu: kGroupFloats)
-
-
-def group_size(R, kp):
-    """Runs one warp of the row pass takes at once: the least power of two
-    that holds all R runs, capped at ``16 // KT`` (KT = ceil(kp / 32) rounded
-    up to a power of two, topics a lane), so a lane holds at most 16 factor
-    values and 16 accumulators."""
-    kt = 1 if kp <= 32 else 2 if kp <= 64 else 4 if kp <= 128 else 8
-    g = 1
-    while g < min(R, _GROUP_FLOATS // kt):
-        g *= 2
-    return g
+# the row pass's stream: a queue that holds a whole row of the corpora at hand
+# (a 20NG row has at most 196 nonzeros), so X is streamed once for all runs;
+# 2 KB windows measured best at R = 16 on an H100 (scripts/torch_dense_sweep.py)
+BATCH_STREAM = ROW_STREAM._replace(window=2048, queue=512)
 
 
 def _check_tables(zds, wzT, n, m, device, ws=None):
@@ -95,19 +90,22 @@ def _launch(name, dev, *args):
     LAUNCHES[name] += 1
 
 
-def batch_rows(X, zds, wzT):
+def batch_rows(X, zds, wzT, shape=None, stream=BATCH_STREAM):
     """The row pass: ``B`` (R, n, kp) from X (n, m), bf16 or float32, and the
-    run tables ``zds`` (R, n, kp) and ``wzT`` (R, m, kp)."""
+    run tables ``zds`` (R, n, kp) and ``wzT`` (R, m, kp). ``shape`` (L, TPL)
+    and ``stream`` (:class:`~.cuda_em.RowStream`) shape the walk."""
     if X.dim() != 2 or X.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"X must be a 2-D bfloat16 or float32 tensor, not {X.dtype} "
                         f"of {X.dim()} dimensions")
     n, m = X.shape
-    if (m * X.element_size()) % 16 or not X.is_contiguous() or X.data_ptr() % 16:
+    if ((m * X.element_size()) % 16 or m >= 2**31 or not X.is_contiguous()
+            or X.data_ptr() % 16):
         raise ValueError(f"X must be contiguous and 16-byte aligned in whole 16-byte rows "
-                         f"(padded width {m})")
+                         f"(padded width {m}, below 2^31)")
     R, kp = _check_tables(zds, wzT, n, m, X.device)
+    args = walk_args(kp, shape, stream)
     B = torch.empty((R, n, kp), dtype=torch.float32, device=X.device)
-    _launch("batch", X.device, int(X.dtype == torch.bfloat16), group_size(R, kp),
+    _launch("batch", X.device, int(X.dtype == torch.bfloat16), *args,
             X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), B.data_ptr(), R, n, m, kp)
     return B
 

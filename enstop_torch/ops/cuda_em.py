@@ -28,18 +28,71 @@ the fp32 LL kernel, as in JAX.
 ``LAUNCHES`` counts kernel launches by kernel and mode (``em_bf16r`` and
 ``refit_bf16r`` are the fast modes); it is raised only where a kernel is
 launched.
+
+The dense kernel walks each row as ``csrc/row_walk.cuh`` describes: X staged
+through a ring of windows in shared memory, its nonzeros compacted into a
+queue and walked by lane groups of the shape ``cuda_sparse.walk_shape(kp)``.
+:class:`RowStream` is the stream's shape (``ROW_STREAM`` by default; the
+batched row pass of :mod:`.cuda_batch` takes the same); no choice of it
+changes a bit of the results.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from . import em as em_ops
 from ._build import LAUNCHES, library
-from .cuda_sparse import MAX_KP, build_side, word_pass
+from .cuda_sparse import MAX_KP, build_side, walk_shape, word_pass
 
 _TINY = em_ops._TINY
-_WARPS = 8  # document rows per block of the dense kernel (csrc/em_dense.cu: kWarps)
+_SMEM_LIMIT = 232_448 - 1024  # shared memory a block may use on an H100, less the static part
+# the walk shapes (L, TPL) built beside cuda_sparse.WALK_SHAPES, for bf16 X in the
+# B-only mode with kp % 4 == 0 (csrc/row_walk.cuh: kSweepShapes)
+SWEEP_SHAPES = ((1, 24), (2, 12), (8, 4), (8, 16), (32, 4))
+
+
+class RowStream(NamedTuple):
+    """How the row walk streams X (``csrc/row_walk.cuh``): ``warps`` rows a
+    block (1-16), a ring of ``stages`` windows (2-8) of ``window`` bytes (a
+    multiple of 512) a warp, and a queue of ``queue`` nonzeros a warp (a
+    multiple of 32, at least 256). The defaults measured best for the dense
+    kernel on an H100 at 20NG (scripts/torch_dense_sweep.py)."""
+
+    warps: int = 4
+    stages: int = 2
+    window: int = 4096
+    queue: int = 256
+
+    def smem_bytes(self):
+        """Dynamic shared memory of a block (``row_walk::smem_bytes``)."""
+        bars = -(-self.warps * self.stages * 8 // 128) * 128
+        return bars + self.warps * (self.stages * self.window + 8 * self.queue)
+
+    def check(self):
+        """Raise ``ValueError`` on a shape the kernels do not take."""
+        if not (1 <= self.warps <= 16 and 2 <= self.stages <= 8 and self.window > 0
+                and self.window % 512 == 0 and self.queue >= 256 and self.queue % 32 == 0):
+            raise ValueError(f"the row walk does not take {self}")
+        if self.smem_bytes() > _SMEM_LIMIT:
+            raise ValueError(f"{self} needs {self.smem_bytes()} bytes of shared memory a "
+                             f"block, more than {_SMEM_LIMIT}")
+        return self
+
+
+ROW_STREAM = RowStream()  # the dense kernel's stream (scripts/torch_dense_sweep.py)
+
+
+def walk_args(kp, shape, stream):
+    """The walk's and the stream's integer arguments of both row kernels:
+    ``(lanes, tpl, warps, stages, window, queue)``. ``shape`` is ``(L,
+    TPL)``, ``walk_shape(kp)`` when None."""
+    lanes, tpl = walk_shape(kp) if shape is None else shape
+    if lanes * tpl < kp:
+        raise ValueError(f"walk shape {(lanes, tpl)} holds fewer than {kp} topics")
+    return (lanes, tpl, *stream.check())
 
 
 def _check_precision(precision):
@@ -75,8 +128,10 @@ def word_side_of(X):
     return build_side(cols, rows, X[rows, cols].float(), X.shape[1], X.shape[0])
 
 
-def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False):
-    """Validate, allocate and launch one dense kernel; returns ``(B, ll, wzT, w)``."""
+def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False, shape=None,
+            stream=ROW_STREAM):
+    """Validate, allocate and launch one dense kernel; returns ``(B, ll, wzT, w)``.
+    ``shape`` (L, TPL) and ``stream`` (:class:`RowStream`) shape the walk."""
     if X.dim() != 2 or zd.dim() != 2 or wz.dim() != 2:
         raise ValueError("X, p_z_given_d and p_w_given_z must be 2-D")
     n, m = X.shape
@@ -92,8 +147,9 @@ def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False):
         raise TypeError("factors must be float32")
     if not 0 < kp <= MAX_KP:
         raise ValueError(f"padded topic count {kp} must be in 1..{MAX_KP}")
-    if (m * X.element_size()) % 16:
-        raise ValueError(f"padded width {m} must fill whole 16-byte rows")
+    if (m * X.element_size()) % 16 or m >= 2**31:
+        raise ValueError(f"padded width {m} must fill whole 16-byte rows, below 2^31")
+    args = walk_args(kp, shape, stream)
     devices = {t.device for t in (X, zd, wz)}
     if len(devices) != 1:
         raise ValueError(f"X and the factors lie on different devices: {devices}")
@@ -106,12 +162,12 @@ def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False):
     wzT = wz.t().contiguous()  # (m, kp): a nonzero's topic column is contiguous
     B = torch.empty((n, kp), dtype=torch.float32, device=dev) if with_b else None
     # one LL partial per block of the grid, summed below in a fixed order
-    ll_part = torch.empty((min(-(-n // _WARPS), 1 << 30) if compute_ll else 0,),
+    ll_part = torch.empty((-(-n // stream.warps) if compute_ll else 0,),
                           dtype=torch.float32, device=dev)
     fn = library("em_dense").enstop_em_dense
     with torch.cuda.device(dev):
         err = fn(
-            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_b), int(compute_ll),
+            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_b), int(compute_ll), *args,
             X.data_ptr(), zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
             None if B is None else B.data_ptr(), ll_part.data_ptr(),
             n, m, kp, torch.cuda.current_stream(dev).cuda_stream,

@@ -36,8 +36,9 @@ __all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk
 SEG_LEN = 512
 MAX_KP = 256
 # (L, TPL): L lanes an entry, TPL topics a lane. The shapes the kernel is built
-# at for every topic count (csrc/em_sparse.cu: kShapes), and those built for
-# kp % 4 == 0 only, which the sweep over L times (kSweepShapes).
+# at for every topic count (csrc/lane_walk.cuh: kShapes, which the dense row
+# walk shares), and those built for kp % 4 == 0 only, which the sweep over L
+# times (csrc/em_sparse.cu: kSweepShapes).
 WALK_SHAPES = ((1, 4), (1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (32, 8))
 SWEEP_SHAPES = ((1, 20), (1, 24), (2, 12), (8, 4), (8, 16), (32, 4))
 _TINY = 1e-30

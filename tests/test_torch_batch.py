@@ -127,10 +127,3 @@ def test_inputs_are_checked():
         cuda_batch.batch_rows(_t(Xd), _t(zds), wzT[:, :-1])
     with pytest.raises(TypeError):
         cuda_batch.batch_rows(_t(Xd).double(), _t(zds), wzT)
-
-
-@pytest.mark.parametrize("R, kp, group", [(1, 8, 1), (3, 24, 4), (16, 24, 16), (17, 24, 16),
-                                          (4, 104, 4), (5, 104, 4), (16, 256, 2)])
-def test_group_size(R, kp, group):
-    """A power of two that holds the runs, at most 16 // KT (KT topics a lane)."""
-    assert cuda_batch.group_size(R, kp) == group

@@ -10,6 +10,8 @@ accumulators and factors, rtol 1e-5 on the log-likelihood; the two sides sum
 in different orders.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -174,3 +176,80 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_library_digest_follows_included_headers(tmp_path):
+    """A library's name hashes its source and every header it includes from
+    ``csrc`` (through other headers too), so a library built from a stale
+    header is never loaded; a source that does not include it keeps its name."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(Path(_build.__file__).parent / "csrc", csrc)
+    names = ("em_dense", "em_batch", "em_sparse")
+    before = {name: _build.digest(name, csrc) for name in names}
+    assert before == {name: _build.digest(name) for name in names}
+    for name in ("em_dense", "em_batch"):
+        assert '#include "row_walk.cuh"' in (csrc / f"{name}.cu").read_text()
+
+    header = csrc / "row_walk.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {name: _build.digest(name, csrc) for name in names}
+    assert edited["em_dense"] != before["em_dense"]
+    assert edited["em_batch"] != before["em_batch"]
+    assert edited["em_sparse"] == before["em_sparse"]
+
+    shared = csrc / "lane_walk.cuh"  # included by em_sparse.cu and, through row_walk.cuh, both
+    shared.write_text(shared.read_text() + "\n// edited\n")
+    assert all(_build.digest(name, csrc) != edited[name] for name in names)
+    sparse = _build.digest("em_sparse", csrc)
+
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    header.write_text('#include "inner.cuh"\n' + header.read_text())
+    nested = _build.digest("em_dense", csrc)
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert _build.digest("em_dense", csrc) != nested
+    assert _build.digest("em_sparse", csrc) == sparse
+
+
+@pytest.mark.parametrize("stream, ok", [
+    (cuda_em.ROW_STREAM, True),
+    (cuda_em.RowStream(queue=512), True),
+    (cuda_em.RowStream(warps=16, stages=8, window=1024, queue=512), True),
+    (cuda_em.RowStream(warps=0), False),
+    (cuda_em.RowStream(warps=17), False),
+    (cuda_em.RowStream(stages=1), False),
+    (cuda_em.RowStream(stages=9), False),
+    (cuda_em.RowStream(window=768), False),
+    (cuda_em.RowStream(queue=128), False),
+    (cuda_em.RowStream(queue=300), False),
+    (cuda_em.RowStream(warps=2, stages=4, window=3072, queue=288), True),
+    (cuda_em.RowStream(warps=16, stages=8, window=2048), False),  # 327,680 B of shared memory
+])
+def test_row_stream_shapes(stream, ok):
+    """The row walk's stream takes 1-16 warps, 2-8 stages, windows of a multiple
+    of 512 bytes, a queue of a multiple of 32 of at least 256 entries, within
+    an H100 block's shared memory; anything else raises
+    before a launch."""
+    bars = -(-stream.warps * stream.stages * 8 // 128) * 128
+    assert stream.smem_bytes() == bars + stream.warps * (stream.stages * stream.window
+                                                         + 8 * stream.queue)
+    if ok:
+        assert cuda_em.walk_args(24, None, stream) == (4, 8, *stream)
+    else:
+        with pytest.raises(ValueError):
+            cuda_em.walk_args(24, None, stream)
+
+
+def test_walk_args_shapes():
+    """The walk's shape is the sparse walk's for the topic count, or one given
+    that holds the topics."""
+    from enstop_torch.ops import cuda_sparse
+
+    for kp in (1, 20, 24, 33, 104, 256):
+        assert cuda_em.walk_args(kp, None, cuda_em.ROW_STREAM)[:2] == cuda_sparse.walk_shape(kp)
+    assert cuda_em.walk_args(24, (2, 12), cuda_em.ROW_STREAM)[:2] == (2, 12)
+    with pytest.raises(ValueError):
+        cuda_em.walk_args(24, (2, 8), cuda_em.ROW_STREAM)
+    with pytest.raises(ValueError):
+        cuda_em.walk_args(257, None, cuda_em.ROW_STREAM)

@@ -404,3 +404,106 @@ def test_batched_fit_on_cuda_matches_cpu(cuda):
     zc, wc = cuda_batch.batched_em_fit(X.cpu(), zds.cpu(), wzs.cpu(), ws.cpu(), 10, device="cpu")
     _close(zf.cpu(), zc, 1e-4)
     _close(wf.cpu(), wc, 1e-4)
+
+
+def _walk_problem(device, dtype, kp, R=1, seed=0):
+    """X (40, 1600) whose rows hold the row walk's edge cases, and R runs'
+    factors of ``kp`` topics (one run: no leading axis). Row 0 is empty; row 1
+    fully nonzero (1,600 entries: it overflows every queue and is walked in
+    pieces); row 2 holds one nonzero, in the last 16-byte chunk; row 3 holds
+    the columns on each side of every 512-, 256- and 128-column boundary (the
+    windows of 1 KB of bf16 and of fp32, and of 512 B); rows 4-7 hold 300
+    nonzeros (more than a 256-entry queue, fewer than 512); the rest 3 %."""
+    rng = np.random.default_rng(seed)
+    n, m = 40, 1600
+    X = (rng.random((n, m)) < 0.03) * rng.integers(1, 6, (n, m))
+    X[0] = 0
+    X[1] = rng.integers(1, 4, m)
+    X[2] = 0
+    X[2, m - 1] = 3
+    X[3] = 0
+    for edge in range(128, m, 128):
+        X[3, edge - 1] = X[3, edge] = 2
+    for row in range(4, 8):
+        X[row] = 0
+        X[row, rng.choice(m, 300, replace=False)] = rng.integers(1, 6, 300)
+    zd = rng.dirichlet(np.full(kp, 0.5), (R, n)).astype(np.float32)
+    wz = rng.random((R, kp, m)).astype(np.float32) + 0.01
+    wz /= wz.sum(2, keepdims=True)
+    w = rng.uniform(0.5, 1.5, (R, n)).astype(np.float32)
+    to = lambda a: torch.from_numpy(a if R > 1 else a[0]).to(device)  # noqa: E731
+    return torch.from_numpy(X.astype(np.float32)).to(device).to(dtype), to(zd), to(wz), to(w)
+
+
+@pytest.mark.parametrize("kp", [1, 20, 24, 33, 104, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_walk_edges_match_plain(cuda, kp, dtype):
+    """Every mode of the dense kernel on the row walk's edge cases (an empty
+    row, a fully dense row, a nonzero in the last chunk, nonzeros on window
+    boundaries, rows past the queue) at every walk shape: against the plain
+    versions at the tolerances above, an empty row's B exactly 0, and two
+    launches bit for bit the same."""
+    X, zd, wz, w = _walk_problem(cuda, dtype, kp, seed=kp)
+    modes = {
+        "em": (lambda: cuda_em.em_accumulators_fused(X, zd, wz, w),
+               port_em.em_accumulators_dense(X, zd, wz, w), (1e-4, 1e-4, 1e-5)),
+        "em_bf16r": (lambda: cuda_em.em_accumulators_fused(X, zd, wz, w, precision="fast"),
+                     port_em.em_accumulators_bf16r(X, zd, wz, w),
+                     (BF16R_A_RTOL, BF16R_B_RTOL, 1e-5)),
+        "refit": (lambda: cuda_em.refit_accumulators_fused(X, zd, wz, w),
+                  port_em.refit_accumulators_dense(X, zd, wz, w), (1e-4, 1e-5)),
+        "refit_bf16r": (lambda: cuda_em.refit_accumulators_fused(X, zd, wz, w, precision="fast"),
+                        port_em.refit_accumulators_bf16r(X, zd, wz, w), (BF16R_B_RTOL, 1e-5)),
+        "ll": (lambda: (cuda_em.log_likelihood_fused(X, zd, wz, w),),
+               (port_em.log_likelihood_dense(X, zd, wz, w),), (1e-5,)),
+    }
+    for name, (kernel, plain, rtols) in modes.items():
+        before = cuda_em.LAUNCHES[name]
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert cuda_em.LAUNCHES[name] == before + 2, name
+        for g, a, want, rtol in zip(got, again, plain, rtols):
+            assert torch.equal(g, a), name
+            _close(g, want, rtol)
+        if name != "ll":
+            B = got[-2]
+            assert float(B[0].abs().sum()) == 0.0, name  # the empty row
+            assert float(B[2].abs().sum()) > 0.0, name   # the last chunk's nonzero
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kp", [24, 104])
+def test_row_walk_is_the_same_whatever_the_stream(cuda, dtype, kp):
+    """The order invariant of ``csrc/row_walk.cuh``: B does not depend on the
+    window size, the stage count, the queue length or the warps a block, and
+    the LL (summed per block over its warps) not on the first three."""
+    X, zd, wz, w = _walk_problem(cuda, dtype, kp, seed=3)
+    RS = cuda_em.RowStream
+    B0, ll0 = cuda_em._launch("refit", X, zd, wz, w, True, True)[:2]
+    for stream in (RS(window=512, stages=2), RS(window=512, stages=5),
+                   RS(window=2048, stages=8, queue=1024), RS(window=1536, stages=3),
+                   RS(queue=512), RS(warps=1), RS(warps=16, stages=3), RS(warps=8)):
+        B, ll = cuda_em._launch("refit", X, zd, wz, w, True, True, stream=stream)[:2]
+        torch.cuda.synchronize()
+        assert torch.equal(B, B0), stream
+        if stream.warps == cuda_em.ROW_STREAM.warps:
+            assert torch.equal(ll, ll0), stream
+
+
+@pytest.mark.parametrize("R", [1, 3, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batch_rows_equal_single_runs_on_row_edges(cuda, R, dtype):
+    """Each batched run's B is a single run's bit for bit on the row walk's
+    edge cases, with the default queue (the fully dense row is streamed again
+    for each run) and with one that holds it; and within 1e-4 of the plain
+    batched accumulators."""
+    X, zds, wzs, ws = _walk_problem(cuda, dtype, 24, R=R, seed=R)
+    if R == 1:
+        zds, wzs, ws = zds[None], wzs[None], ws[None]
+    wzT = wzs.transpose(1, 2).contiguous()
+    B = cuda_batch.batch_rows(X, zds, wzT)
+    B_big = cuda_batch.batch_rows(X, zds, wzT, stream=cuda_em.RowStream(queue=2048))
+    _close(B, port_em.batched_accumulators_dense(X, zds, wzs, ws)[1], 1e-4)
+    for r in range(R):
+        B1, _ = cuda_em.refit_accumulators_fused(X, zds[r], wzs[r], ws[r], compute_ll=False)
+        assert torch.equal(B[r], B1) and torch.equal(B_big[r], B1), r

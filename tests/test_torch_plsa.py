@@ -377,3 +377,74 @@ def test_host_densify_matches_jax_and_device_scatter():
     scattered = port_driver._stage_dense(X, torch.device("cpu"), torch.bfloat16)[0]
     assert dense.dtype == scattered.dtype == torch.bfloat16
     assert torch.equal(dense, scattered)
+
+
+def _bad_inputs():
+    X = _counts().toarray().astype(np.float64)
+    with_inf, with_nan = X[:6].copy(), X[:6].copy()
+    with_inf[2, 3], with_nan[4, 1] = np.inf, np.nan
+    return {"inf": with_inf, "nan": with_nan, "1-D": X[0],
+            "non-numeric": np.full((3, X.shape[1]), "word", dtype=object)}
+
+
+@pytest.mark.parametrize("case", ["inf", "nan", "1-D", "non-numeric"])
+def test_transform_rejects_what_jax_rejects(case):
+    """``transform`` checks its input as JAX's ``check_array`` does: a
+    non-finite, 1-D or non-numeric matrix raises ``ValueError`` in both."""
+    port, ref = _pair(n_iter=5)
+    port.fit(_counts())
+    ref.fit(_counts())
+    bad = _bad_inputs()[case]
+    with pytest.raises(ValueError):
+        ref.transform(bad)
+    with pytest.raises(ValueError):
+        port.transform(bad)
+
+
+def test_unfitted_transform_raises_not_fitted_error():
+    """Both packages raise an error that is a ``ValueError`` and an
+    ``AttributeError`` (scikit-learn's ``NotFittedError`` in JAX, the port's
+    own class here)."""
+    from enstop_torch.models.base import NotFittedError
+
+    port, ref = _pair()
+    for model in (ref, port, enstop_torch.EnsembleTopics(device="cpu")):
+        for kind in (ValueError, AttributeError):
+            with pytest.raises(kind):
+                model.transform(_counts())
+    with pytest.raises(NotFittedError, match="not fitted"):
+        port.transform(_counts())
+    assert issubclass(NotFittedError, ValueError) and issubclass(NotFittedError, AttributeError)
+
+
+def test_base_load_dispatches_to_the_saved_class(tmp_path):
+    """``TopicModelBase.load`` builds the class the checkpoint records, as the
+    JAX package's does, for checkpoints of either package; a subclass still
+    refuses another class's checkpoint."""
+    from enstop_torch.models.base import TopicModelBase
+    from enstop_tpu.models.base import TopicModelBase as JaxBase
+
+    X = _counts()
+    ref = enstop_tpu.PLSA(n_components=3, random_state=0, backend="xla", n_iter=10).fit(X)
+    ref.save(tmp_path / "jax_plsa.npz")
+    rng = np.random.RandomState(2)
+    topics = rng.rand(5, X.shape[1]).astype(np.float32)
+    topics /= topics.sum(1, keepdims=True)
+    ens = enstop_torch.EnsembleTopics.from_state(topics, rng.rand(X.shape[0], 5))
+    ens.save(tmp_path / "port_ens.npz")
+
+    plsa = TopicModelBase.load(tmp_path / "jax_plsa.npz", device="cpu")
+    assert type(plsa) is enstop_torch.PLSA and plsa.device == "cpu"
+    np.testing.assert_array_equal(plsa.components_, ref.components_)
+    np.testing.assert_allclose(plsa.transform(X[:20]), ref.transform(X[:20]), **FACTOR_TOL)
+    loaded = TopicModelBase.load(tmp_path / "port_ens.npz")
+    jax_loaded = JaxBase.load(tmp_path / "port_ens.npz")
+    assert type(loaded) is enstop_torch.EnsembleTopics
+    assert type(jax_loaded).__name__ == "EnsembleTopics"
+    assert loaded.n_components_ == 5
+    np.testing.assert_array_equal(loaded.components_, jax_loaded.components_)
+    with pytest.raises(ValueError, match="EnsembleTopics"):
+        enstop_torch.PLSA.load(tmp_path / "port_ens.npz")
+    np.savez(tmp_path / "odd.npz", class_name=np.frombuffer(b"Bogus", np.uint8))
+    with pytest.raises(ValueError, match="unknown"):
+        TopicModelBase.load(tmp_path / "odd.npz")

@@ -244,20 +244,25 @@ def test_word_pass_gives_the_dense_steps_A(bf16r):
 
 def test_walk_shape_is_a_built_shape_for_every_topic_count():
     """``walk_shape(kp)`` names, for every kp the kernel takes, a shape the
-    kernel is built at (``kShapes`` in ``em_sparse.cu``, for either chunk
-    width) whose lane groups divide the warp and cover kp topics, with at most
-    16 topics a lane in registers; the sweep's shapes are the source's too."""
+    kernel is built at (``kShapes`` in ``lane_walk.cuh``, which ``em_sparse.cu``
+    and the dense row walk share, for either chunk width) whose lane groups
+    divide the warp and cover kp topics, with at most 16 topics a lane in
+    registers; the sweeps' shapes are their sources' too."""
     import re
     from pathlib import Path
 
-    src = (Path(cuda_sparse.__file__).parent / "csrc" / "em_sparse.cu").read_text()
+    from enstop_torch.ops import cuda_em
 
-    def built(name):
-        body = re.search(name + r"\[\]\[2\] = \{(.*?)\};", src, re.S).group(1)
+    csrc = Path(cuda_sparse.__file__).parent / "csrc"
+
+    def built(name, source):
+        body = re.search(name + r"\[\]\[2\] = \{(.*?)\};", (csrc / source).read_text(),
+                         re.S).group(1)
         return tuple((int(a), int(b)) for a, b in re.findall(r"\{(\d+), (\d+)\}", body))
 
-    assert built("kShapes") == cuda_sparse.WALK_SHAPES
-    assert built("kSweepShapes") == cuda_sparse.SWEEP_SHAPES
+    assert built("kShapes", "lane_walk.cuh") == cuda_sparse.WALK_SHAPES
+    assert built("kSweepShapes", "em_sparse.cu") == cuda_sparse.SWEEP_SHAPES
+    assert built("kSweepShapes", "row_walk.cuh") == cuda_em.SWEEP_SHAPES
     for kp in range(1, cuda_sparse.MAX_KP + 1):
         L, tpl = cuda_sparse.walk_shape(kp)
         assert (L, tpl) in cuda_sparse.WALK_SHAPES, kp
