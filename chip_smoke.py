@@ -28,7 +28,16 @@ launch counts set to 0 just before it and read just after:
    n_iter=80)`` at config C' (100,000 docs x 141,000 words, 6.2 M draws);
 9. ``cuda_batch.batched_em_fit``: 16 bootstrap runs of the 20NG ensemble
    (its own inits and multinomial weights), 80 steps, held against 16
-   sequential fits of ``em_step_fused`` (phase 12).
+   sequential fits of ``em_step_fused`` (phase 12);
+10. ``StreamedPLSA(block_size=65_536)`` at config C (4 blocks streamed from
+    pinned host memory each iteration, 100 iterations) against phase 9's
+    resident sparse fit from the same init, twice (bit for bit), with its
+    peak device memory, copy rate and overlap, and ``transform`` on 2,000
+    documents (phase 13);
+11. at 20NG: ``EnsembleTopics(model="nmf", n_components=20, n_starts=16)``
+    (each run's KL multiplicative updates on the sparse word and doc passes),
+    ``PLSA(init="nndsvd")`` and ``PLSA(init="nmf")``, and the topic metrics
+    of phase 3's model (phase 14).
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -61,7 +70,10 @@ dense fp32 modes do; each run's A and B are a single-run step's bit for bit
 within rtol 1e-4 / atol 1e-6 of the sequential fits' (the JAX package's own
 test). A fit's final LL is held to 1e-4 relative of a plain fit from the
 same initial factors (and, for an ensemble's first two bootstrap runs, the
-same document weights). The combine stage: squared Hellinger distances
+same document weights); the streamed fit's to 1e-4 relative of the resident
+sparse fit from the same init (the same passes on blocks: only the order of
+A's block sums differs), and its peak device memory must stay below the
+resident fit's. The combine stage: squared Hellinger distances
 within 1e-5 of a float64 reference (a float32 Gram matrix over
 25,000 words; readings on the H100 2.2e-6 on the card, 9.4e-7 on the host),
 and bit for bit the matrix the ensemble used when recomputed with TF32
@@ -117,6 +129,10 @@ CONFIG_C2 = (100_000, 141_000, 6_200_000)    # and its config C'
 THRESHOLDS = (None, 1e-16, 1e-3)
 BATCH_RUNS = 16                              # the ensemble's n_starts
 BATCH_FIT_RTOL, BATCH_FIT_ATOL = 1e-4, 1e-6  # the JAX package's batched-fit test
+STREAM_BLOCK = 65_536                        # StreamedPLSA's default: 4 blocks at config C
+STREAMED = dict(n_components=20, block_size=STREAM_BLOCK, n_iter=100, n_iter_per_test=10,
+                tolerance=0, random_state=0, device="cuda")
+NMF_ENSEMBLE = dict(n_components=20, n_starts=16, random_state=0)
 
 
 def check(ok, what):
@@ -474,6 +490,178 @@ def plain_sparse():
         yield
     finally:
         sell.word_pass, sell.doc_pass = kernels
+
+
+def streamed_sweep_ms(store, zd_blocks, wzT, w_blocks, mode, reps):
+    """CUDA-event ms a sweep of the streamed fit's block loop takes at the
+    fitted state: ``"full"`` (the copies and the passes, as the fit runs
+    them), ``"copy"`` (the copies alone) or ``"kernels"`` (the passes
+    alone, every block already on the card)."""
+    from enstop_torch.models.streamed_core import _Streamer, _tensors
+    from enstop_torch.ops.cuda_sparse import Side, doc_pass, word_pass
+
+    dev = wzT.device
+
+    def passes(b, doc, word):
+        AT, _ = word_pass(word, zd_blocks[b], wzT, w_blocks[b], compute_ll=False)
+        B, ll = doc_pass(doc, zd_blocks[b], wzT, w_blocks[b])
+        return AT, zd_blocks[b] * B, ll
+
+    if mode == "kernels":
+        on_card = [{name: Side(*(t.to(dev) for t in _tensors(side)), side.n_owner, side.n_index)
+                    for name, side in blk.items()} for blk in store.blocks]
+        return cuda_ms(lambda: [passes(b, blk["doc"], blk["word"])
+                                for b, blk in enumerate(on_card)], reps)
+    streamer = _Streamer(store, dev)
+    if mode == "copy":
+        ms = cuda_ms(lambda: [None for _ in streamer.sweep(then=True)], reps)
+    else:
+        ms = cuda_ms(lambda: [passes(b, doc, word) for b, doc, word in streamer.sweep(then=True)],
+                     reps)
+    streamer.close()
+    return ms
+
+
+def streamed_phase(XC, docs_c, resident, resident_peak, cuda_em, em, cuda_sparse, totals):
+    """Phase 13: StreamedPLSA at config C, 4 blocks from pinned host memory.
+    Returns the word and doc passes' largest absolute errors on one block."""
+    from enstop_torch.models import streamed_core
+    from enstop_torch.ops.sell import PreparedSell
+    import enstop_torch
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    # (a) one block's passes, on the card where the streamer put them, against
+    # their plain versions
+    store = streamed_core._BlockStore(XC, STREAM_BLOCK, pin=True)
+    streamer = streamed_core._Streamer(store, dev)
+    b, doc, word = next(streamer.sweep())
+    block = PreparedSell(doc, word, doc.n_owner, word.n_owner)
+    worst = compare_sparse(f"config C block {b} ({doc.n_owner} docs)", block, 20, cuda_sparse)
+    del block, doc, word
+    streamer.close()
+    print(f"phase 13 streamed block vs plain: ok, largest abs err {json.dumps(worst)}")
+
+    reset_counts(cuda_em, em)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = enstop_torch.StreamedPLSA(**STREAMED).fit(XC)
+    fit_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    fit_launches = dict(cuda_em.LAUNCHES)
+    t0 = time.perf_counter()
+    embedding = model.transform(docs_c)
+    transform_wall = time.perf_counter() - t0
+    info = model.fit_info_
+    launches = read_counts("streamed fit + transform", ("word_pass", "doc_pass"), cuda_em, em,
+                           totals)
+    n_blocks, n_iter = info["n_blocks"], STREAMED["n_iter"]
+    print(f"phase 13 StreamedPLSA at config C: {n_blocks} blocks of {STREAM_BLOCK} docs, fit "
+          f"{fit_wall:.3f} s wall ({info['store_s']:.3f} s packing the store, "
+          f"{info['loop_s']:.3f} s in the EM loop: {info['n_sweeps']} sweeps, "
+          f"{info['loop_s'] / info['n_sweeps'] * 1e3:.3f} ms a sweep), transform of "
+          f"{N_TRANSFORM} docs {transform_wall:.3f} s wall; fit launches "
+          f"{json.dumps(fit_launches)}")
+    check(n_blocks == 4, "config C streams in 4 blocks")
+    check(fit_launches["word_pass"] == n_blocks * n_iter
+          and fit_launches["doc_pass"] >= n_blocks * n_iter,
+          "every block's word and doc passes ran every iteration")
+    check(launches["doc_pass"] > fit_launches["doc_pass"], "transform ran the doc pass")
+    check(all(launches[k] == 0 for k in ("em", "refit", "ll", "em_bf16r", "refit_bf16r")),
+          "the streamed path launched no dense kernel")
+    check(model.n_iter_ == n_iter and np.all(np.isfinite(model.history_))
+          and model.history_[-1] > model.history_[0], "streamed fit history")
+    check_distributions(model.components_, "streamed topics")
+    check_distributions(embedding, "streamed transform rows")
+    # (b) against phase 9's resident sparse fit from the same init
+    ll, ll_res = info["log_likelihood"], resident.fit_info_["log_likelihood"]
+    gap = abs(ll - ll_res) / abs(ll_res)
+    topic_gap = float(np.abs(model.components_ - resident.components_).max())
+    print(f"  final LL streamed {ll:.6f} resident {ll_res:.6f} rel gap {gap:.3e}; topics max "
+          f"abs gap {topic_gap:.3e}; history streamed {model.history_.tolist()}")
+    check(gap <= FIT_LL_RTOL, "the streamed fit's LL agrees with the resident sparse fit")
+    # (c) run to run
+    again = enstop_torch.StreamedPLSA(**STREAMED).fit(XC)
+    same = (np.array_equal(again.components_, model.components_)
+            and np.array_equal(again.embedding_, model.embedding_)
+            and np.array_equal(again.history_, model.history_))
+    print(f"  two streamed fits: {'bit for bit the same' if same else 'DIFFER'}")
+    check(same, "repeat streamed fits are bit for bit the same")
+    # (d) memory
+    print(f"  peak device memory above what was allocated before the fit: streamed "
+          f"{peak / 2**20:.1f} MiB, resident sparse fit (phase 9) {resident_peak / 2**20:.1f} "
+          f"MiB; the store holds {info['host_bytes'] / 2**20:.1f} MiB of pinned host memory "
+          f"({info['host_bytes'] / XC.nnz:.2f} B a nonzero)")
+    check(peak < resident_peak, "the streamed fit peaks below the resident one")
+    # (e) time per iteration, bytes, copy rate and overlap, at the fitted state
+    zd_blocks = [torch.from_numpy(np.ascontiguousarray(model.embedding_[lo:hi])).to(dev)
+                 for lo, hi in store.block_rows]
+    w_blocks = [torch.ones(hi - lo, device=dev) for lo, hi in store.block_rows]
+    wzT = torch.from_numpy(np.ascontiguousarray(model.components_.T)).to(dev)
+    sweep = {mode: streamed_sweep_ms(store, zd_blocks, wzT, w_blocks, mode, 10)
+             for mode in ("full", "copy", "kernels")}
+    per_sweep = info["bytes_per_sweep"]
+    rate = per_sweep / (sweep["copy"] * 1e-3)
+    hidden = (sweep["copy"] + sweep["kernels"] - sweep["full"]) / sweep["kernels"]
+    print(f"  a sweep (CUDA events): copies and passes {sweep['full']:.4f} ms, copies alone "
+          f"{sweep['copy']:.4f} ms, passes alone (blocks resident) {sweep['kernels']:.4f} ms; "
+          f"{per_sweep / 1e6:.1f} MB shipped a sweep ({info['bytes_shipped'] / 1e6:.1f} MB in "
+          f"the fit), copy rate {rate / 1e9:.2f} GB/s; the overlap hides {hidden:.3f} of the "
+          f"passes' time")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return worst
+
+
+def surface_phase(X, model, cuda_em, em, totals):
+    """Phase 14 at 20NG: the NMF ensemble, the data-dependent inits, the
+    topic metrics."""
+    from enstop_torch.models import ensemble as ens
+    from enstop_torch.ops.init import plsa_init
+    import enstop_torch
+
+    t_phase = time.perf_counter()
+    reset_counts(cuda_em, em)
+    t0 = time.perf_counter()
+    nmf = enstop_torch.EnsembleTopics(model="nmf", device="cuda", **NMF_ENSEMBLE)
+    nmf_embedding = nmf.fit_transform(X)
+    nmf_wall = time.perf_counter() - t0
+    launches = read_counts("NMF ensemble fit", ("word_pass", "doc_pass"), cuda_em, em, totals)
+    print(f"phase 14 NMF ensemble at 20NG, {NMF_ENSEMBLE['n_starts']} starts: n_components_ "
+          f"{nmf.n_components_}, fit_transform {nmf_wall:.3f} s wall, last_timings "
+          f"{json.dumps(ens.ensemble_fit.last_timings)}")
+    check(launches["word_pass"] >= NMF_ENSEMBLE["n_starts"] * 200
+          and launches["doc_pass"] >= launches["word_pass"] + 200,
+          "each run's 200 KL updates ran both sparse passes, the embedding 200 doc passes")
+    check(nmf.n_components_ >= 2, "the NMF ensemble finds at least two stable topics")
+    check_distributions(nmf.components_, "NMF stable topics")
+    check(nmf_embedding.shape == (X.shape[0], nmf.n_components_)
+          and np.all(np.isfinite(nmf_embedding)) and np.all(nmf_embedding >= 0),
+          "the NMF embedding is finite and non-negative")
+    for init in ("nndsvd", "nmf"):
+        t0 = time.perf_counter()
+        plsa_init(X, 20, init=init, rng=np.random.RandomState(0))
+        init_s = time.perf_counter() - t0
+        reset_counts(cuda_em, em)
+        t0 = time.perf_counter()
+        fitted = enstop_torch.PLSA(n_components=20, init=init, n_iter=100, n_iter_per_test=10,
+                                   tolerance=0, random_state=0, device="cuda").fit(X)
+        wall = time.perf_counter() - t0
+        read_counts(f"PLSA(init={init!r}) fit", ("em", "word_pass"), cuda_em, em, totals)
+        print(f"  PLSA(init={init!r}): init {init_s:.3f} s on the host, fit {wall:.3f} s wall "
+              f"({fitted.fit_info_['wall_time_s']:.3f} s in the EM loop), final LL "
+              f"{fitted.fit_info_['log_likelihood']:.6f} (random init, phase 3: "
+              f"{model.fit_info_['log_likelihood']:.6f})")
+        check(fitted.n_iter_ == 100 and np.all(np.isfinite(fitted.history_))
+              and fitted.history_[-1] > fitted.history_[0], f"PLSA(init={init!r}) history")
+        check_distributions(fitted.components_, f"PLSA(init={init!r}) topics")
+    t0 = time.perf_counter()
+    metrics = {"coherence": model.coherence(), "log_lift": model.log_lift(),
+               "coherence of topic 0": model.coherence(0), "log_lift of topic 0": model.log_lift(0)}
+    print(f"  phase 3 model's metrics {json.dumps(metrics)} in "
+          f"{time.perf_counter() - t0:.3f} s; phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    check(all(np.isfinite(v) for v in metrics.values()), "finite topic metrics")
 
 
 def main():
@@ -894,11 +1082,15 @@ def main():
     # -- phase 9: sparse PLSA at config C, fit then transform -----------------
     docs_c = XC[:N_TRANSFORM]
     reset_counts(cuda_em, em)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sparse_model = enstop_torch.PLSA(n_components=20, n_iter=100, n_iter_per_test=10,
                                      tolerance=0, random_state=0, backend="sparse",
                                      device="cuda").fit(XC)
     sfit_wall = time.perf_counter() - t0
+    resident_peak = torch.cuda.max_memory_allocated() - resident_base
     sfit_launches = dict(cuda_em.LAUNCHES)
     t0 = time.perf_counter()
     sparse_embedding = sparse_model.transform(docs_c)
@@ -1089,6 +1281,11 @@ def main():
           f"{seq_fit_ms:.2f} ms; batched is "
           f"{seq_fit_ms / fit_ms:.2f} times faster; phase 12 took "
           f"{time.perf_counter() - t_phase12:.1f} s")
+
+    for name, err in streamed_phase(XC, docs_c, sparse_model, resident_peak, cuda_em, em,
+                                    cuda_sparse, totals).items():
+        worst[name] = max(worst[name], err)
+    surface_phase(X, model, cuda_em, em, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.data import resolve_device
 from ..utils import check_random_state
 
 __all__ = ["umap_embed", "UMAP", "fuzzy_simplicial_set", "find_ab_params"]
@@ -262,15 +263,17 @@ def umap_embed(
     n_epochs=None,
     random_state=None,
     layout="auto",
-    device="cpu",
+    device="cuda",
 ):
     """Embed points to ``n_components`` dims. Provide either a precomputed distance
     matrix or data + a metric callable (rows assumed l1-normalized for hellinger).
 
-    ``layout``: ``"auto"`` runs the SGD as a torch loop on ``device`` when
-    that is a CUDA device and in numpy otherwise; ``"device"``/``"host"``
-    force a path (``"device"`` with a CPU ``device`` runs the torch loop on
-    the CPU)."""
+    ``device``: ``"cuda"`` by default; a CUDA device that is missing raises,
+    nothing falls back to the CPU. ``layout``: ``"auto"`` runs the SGD as a
+    torch loop on ``device`` when that is a CUDA device and in numpy
+    otherwise; ``"device"``/``"host"`` force a path (``"device"`` with a CPU
+    ``device`` runs the torch loop on the CPU)."""
+    device = resolve_device(device)
     rng = check_random_state(random_state)
     if dmat is None:
         if callable(metric):
@@ -302,7 +305,7 @@ def umap_embed(
     a, b = find_ab_params(spread, min_dist)
     seed = rng.randint(np.iinfo(np.int32).max)
     if layout == "auto":
-        layout = "device" if torch.device(device).type == "cuda" else "host"
+        layout = "device" if device.type == "cuda" else "host"
     if layout == "device":
         return _optimize_layout_device(emb, W, n_epochs, a, b, seed, device=device)
     return _optimize_layout(emb, W, n_epochs, a, b, np.random.RandomState(seed))
@@ -310,10 +313,11 @@ def umap_embed(
 
 class UMAP:
     """Minimal facade matching the constructor surface the reference uses
-    (enstop_.py:385-387)."""
+    (enstop_.py:385-387), plus ``device`` (``"cuda"`` by default, as
+    :func:`umap_embed`)."""
 
     def __init__(self, n_neighbors=15, n_components=2, metric="euclidean",
-                 min_dist=0.1, spread=1.0, n_epochs=None, random_state=None):
+                 min_dist=0.1, spread=1.0, n_epochs=None, random_state=None, device="cuda"):
         self.n_neighbors = n_neighbors
         self.n_components = n_components
         self.metric = metric
@@ -321,6 +325,7 @@ class UMAP:
         self.spread = spread
         self.n_epochs = n_epochs
         self.random_state = random_state
+        self.device = device
 
     def fit_transform(self, X):
         return umap_embed(
@@ -332,4 +337,5 @@ class UMAP:
             spread=self.spread,
             n_epochs=self.n_epochs,
             random_state=self.random_state,
+            device=self.device,
         )

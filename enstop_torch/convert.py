@@ -1,8 +1,11 @@
 """State carried across from the JAX package.
 
 A model fitted by ``enstop_tpu`` reaches the port as numpy arrays: either a
-checkpoint written by its ``save()`` (read with ``enstop_torch.PLSA.load`` or
-``enstop_torch.EnsembleTopics.load``) or the arrays themselves
+checkpoint written by its ``save()`` (read with
+``enstop_torch.models.base.TopicModelBase.load``, which builds the class the
+checkpoint records: ``PLSA``, ``EnsembleTopics``, ``StreamedPLSA``, or
+``GPUPLSA`` for the JAX package's ``TPUPLSA``/``GPUPLSA``; or with that
+class's own ``load``) or the arrays themselves
 (:func:`from_jax_state` for a PLSA, ``enstop_torch.EnsembleTopics.from_state``
 for an ensemble). :func:`pad_state` turns numpy factors into the padded device
 tensors the EM ops take.

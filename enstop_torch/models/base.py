@@ -11,6 +11,7 @@ import json
 import numpy as np
 import scipy.sparse as sp
 
+from ..ops.metrics import coherence, log_lift, mean_coherence, mean_log_lift
 from ..utils import _check_sample_weight, standardize_input
 
 # JAX-package backends that have no meaning here; a checkpoint naming one
@@ -177,7 +178,7 @@ class TopicModelBase:
                 if cls is None:
                     raise ValueError(
                         f"Checkpoint was saved by unknown estimator class {saved_class!r}")
-            elif saved_class != cls.__name__:
+            elif saved_class != cls.__name__ and _estimator_class(saved_class) is not cls:
                 raise ValueError(
                     f"Checkpoint at {str(path)!r} was saved by {saved_class!r}; load it "
                     f"with {saved_class}.load(...) (or TopicModelBase.load(...) to "
@@ -194,11 +195,11 @@ class TopicModelBase:
     def from_state(cls, components, embedding, history=None, params=None):
         """An estimator holding the given fitted arrays. ``params`` keeps the
         constructor arguments this class has; a JAX-only backend name
-        becomes ``"auto"``."""
+        becomes this class's default backend."""
         names = cls._param_names()
         params = {k: v for k, v in (params or {}).items() if k in names}
         if params.get("backend") in _JAX_BACKENDS:
-            params["backend"] = "auto"
+            params["backend"] = inspect.signature(cls.__init__).parameters["backend"].default
         model = cls(**params)
         model.components_ = np.asarray(components)
         model.embedding_ = np.asarray(embedding)
@@ -210,11 +211,54 @@ class TopicModelBase:
         """The ``(P(z|d), P(w|z))`` tuple accepted by ``init=`` to resume EM."""
         return (np.asarray(self.embedding_), np.asarray(self.components_))
 
+    # -- topic-quality metrics -------------------------------------------------
+
+    def _metric_data(self, data):
+        """The corpus the metrics count co-occurrences in: ``data``, else the
+        stored ``training_data_``, which is None after a fit on prepared input
+        and after :meth:`load`."""
+        if data is not None:
+            return data
+        stored = getattr(self, "training_data_", None)
+        if stored is None:
+            raise ValueError(
+                "No training data is stored on this model (it was fitted on a prepared "
+                "corpus, or restored via load()). Pass the count matrix explicitly: "
+                "model.coherence(data=X) / model.log_lift(data=X)."
+            )
+        return stored
+
+    def _metric(self, mean_fn, one_fn, topic_num, n_words, data):
+        if not isinstance(topic_num, int) and topic_num is not None:
+            raise ValueError("Topic number must be an integer or None.")
+        data = self._metric_data(data)
+        n_topics = self.components_.shape[0]
+        if topic_num is None:
+            return mean_fn(self.components_, data, n_words)
+        if 0 <= topic_num < n_topics:
+            return one_fn(self.components_, topic_num, data, n_words)
+        raise ValueError(f"Topic number must be in range 0 to {n_topics}")
+
+    def coherence(self, topic_num=None, n_words=20, data=None):
+        """Mean (or one topic's) coherence of the fitted topics against
+        ``data``, by default the stored ``training_data_``."""
+        return self._metric(mean_coherence, coherence, topic_num, n_words, data)
+
+    def log_lift(self, topic_num=None, n_words=20, data=None):
+        """Mean (or one topic's) log lift of the fitted topics against
+        ``data``, by default the stored ``training_data_``."""
+        return self._metric(mean_log_lift, log_lift, topic_num, n_words, data)
+
 
 def _estimator_class(name):
     """The port's estimator class a checkpoint's recorded name stands for, or
-    None."""
+    None. The JAX package records ``"TPUPLSA"`` for a ``GPUPLSA`` (there it is
+    an alias); here ``TPUPLSA`` is the alias of ``GPUPLSA``."""
+    from .accelerated import GPUPLSA
     from .ensemble import EnsembleTopics
     from .plsa import PLSA
+    from .streamed import StreamedPLSA
 
-    return {c.__name__: c for c in (PLSA, EnsembleTopics)}.get(name)
+    classes = {c.__name__: c for c in (PLSA, EnsembleTopics, StreamedPLSA, GPUPLSA)}
+    classes["TPUPLSA"] = GPUPLSA
+    return classes.get(name)

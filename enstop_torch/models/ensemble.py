@@ -1,8 +1,8 @@
 """Ensemble topic modelling, EnsTop (counterpart of
 ``enstop_tpu/models/ensemble.py``).
 
-Pipeline: bootstrap-resample the documents, fit k pLSA topics per run, stack
-the ``n_runs * k`` topic vectors, cluster them into stable topics (Hellinger
+Pipeline: bootstrap-resample the documents, fit k topics per run (pLSA or
+NMF), stack the ``n_runs * k`` topic vectors, cluster them into stable topics (Hellinger
 distance, UMAP, HDBSCAN), merge each cluster (the membership-weighted square
 of the mean of square roots), and refit the documents against the stable
 topics.
@@ -21,8 +21,15 @@ sparse fit; the final refit runs on the same layout with the ensemble's
 ``e_step_thresh`` (``ensemble_fit``'s own default of 1e-16 applies exactly
 there; the estimator passes 1e-32).
 
-Not ported yet, and raising ``NotImplementedError``: ``model="nmf"`` and
-``parallelism="sharded"`` (the device mesh).
+``model="nmf"`` runs each bootstrap as a materialised row resample (the
+``"resample"`` fan-out, as in the JAX package): multiplicative updates on the
+device (``solver="mu"``, :func:`~enstop_torch.ops.nmf.nmf_fit_mu`) or
+coordinate descent on the host (``solver="cd"``); the stack then joins the
+card for the combine stage, and the final embedding is ``nmf_fit_mu`` against
+the frozen stable topics.
+
+Not ported yet, and raising ``NotImplementedError``: ``parallelism="sharded"``
+for pLSA (the device mesh).
 """
 
 from __future__ import annotations
@@ -44,21 +51,19 @@ from ..ops.data import K_MULTIPLE, pad_factors, pad_vector, round_up
 from ..ops.driver import (PreparedCounts, _warn_fast_unsupported, fit_padded, kernel_steps,
                           plsa_fit, plsa_refit, prepare_counts, resolve_device)
 from ..ops.init import plsa_init
+from ..ops.nmf import nmf_cd, nmf_fit_mu
 from ..ops.sell import PreparedSell, prepare_sell, sell_fit
-from ..utils import _check_sample_weight, check_random_state
+from ..utils import _check_sample_weight, check_random_state, normalized
 from .base import TopicModelBase, check_counts
 
 __all__ = ["EnsembleTopics", "ensemble_fit", "ensemble_of_topics", "plsa_topics",
-           "resolve_parallelism"]
+           "nmf_topics", "resolve_parallelism"]
 
 PARALLELISM = ("auto", "weights", "sharded", "resample", "none", "joblib", "dask")
 
 
 def _check_model(model):
-    if model == "nmf":
-        raise NotImplementedError(
-            "model='nmf' needs the NMF solver, which is not ported yet (ROADMAP.md)")
-    if model != "plsa":
+    if model not in ("plsa", "nmf"):
         raise ValueError('Model must be one of "plsa" or "nmf"')
 
 
@@ -97,15 +102,47 @@ def plsa_topics(X, k, **kwargs):
     return topics
 
 
+def nmf_topics(X, k, **kwargs):
+    """One bootstrap-resampled NMF run; returns the (k, n_words) topics,
+    l1-normalised. ``solver="mu"`` runs :func:`~enstop_torch.ops.nmf.nmf_fit_mu`
+    on ``device``; ``solver="cd"`` the host coordinate descent with
+    scikit-learn's ``NMF(alpha_W=alpha / n_features, alpha_H=alpha /
+    n_samples)`` scaling, which puts the reference's unscaled ``alpha`` on
+    both factors' L2 terms."""
+    A = X.tocsr()
+    if kwargs.get("bootstrap", True):
+        rng = check_random_state(kwargs.get("random_state", None))
+        B = A[rng.randint(0, A.shape[0], size=A.shape[0])]
+    else:
+        B = A
+    init = kwargs.get("init", "nndsvd")
+    alpha = float(kwargs.get("alpha", 0.0))
+    if kwargs.get("solver", "mu") == "cd":
+        _, topics, _ = nmf_cd(B, k, init=init, l2_reg=alpha,
+                              random_state=kwargs.get("random_state", None))
+    else:
+        _, topics = nmf_fit_mu(
+            B, k,
+            beta_loss=kwargs.get("beta_loss", 1),
+            init="nndsvd" if isinstance(init, (tuple, list)) else init,
+            alpha=alpha,
+            random_state=kwargs.get("random_state", None),
+            device=kwargs.get("device", "cuda"),
+        )
+    return normalized(np.asarray(topics, dtype=np.float64), axis=1).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # ensemble fan-out
 # ---------------------------------------------------------------------------
 
 def resolve_parallelism(parallelism, model="plsa", backend="auto", prepared=None):
     """``"auto"`` is ``"weights"`` for pLSA (one device), ``"resample"``
-    otherwise; ``"sharded"`` has no sparse variant (a ``ValueError`` for
-    ``backend="sparse"`` or a :class:`PreparedSell`) and needs the device
-    mesh, which is not ported yet. Other names pass through."""
+    otherwise; for pLSA ``"sharded"`` has no sparse variant (a
+    ``ValueError`` for ``backend="sparse"`` or a :class:`PreparedSell`) and
+    needs the device mesh, which is not ported yet. Other names pass
+    through; NMF runs every name but ``"joblib"``/``"dask"`` as
+    ``"resample"``."""
     if parallelism == "auto":
         return "weights" if model == "plsa" else "resample"
     if parallelism == "sharded" and model == "plsa" and (
@@ -114,7 +151,7 @@ def resolve_parallelism(parallelism, model="plsa", backend="auto", prepared=None
             "parallelism='sharded' has no sparse variant: the weights fan-out on the "
             "sparse layout is the sparse program; use parallelism='weights' or 'auto' "
             "with backend='sparse'")
-    if parallelism == "sharded":
+    if parallelism == "sharded" and model == "plsa":
         raise NotImplementedError(
             "parallelism='sharded' (the runs sharded over a device mesh) is not "
             "ported yet (ROADMAP.md); use 'auto' or 'weights' on one device")
@@ -216,9 +253,10 @@ def ensemble_of_topics(X, k, model="plsa", n_jobs=4, n_runs=16, parallelism="aut
       * ``"resample"`` / ``"none"``: a materialised row resample per run, fits
         run one after another;
       * ``"joblib"`` / ``"dask"``: the same runs in a thread pool of ``n_jobs``
-        workers on the CPU; on a CUDA device a warning is issued and the fits
-        run one after another;
-      * ``"sharded"``: raises ``NotImplementedError`` (no device mesh yet).
+        workers where they run on the host (the CPU device, or NMF's
+        ``solver="cd"``); otherwise they warn and run one after another;
+      * ``"sharded"``: raises ``NotImplementedError`` for pLSA (no device
+        mesh yet).
 
     Keyword arguments: those of :func:`ensemble_fit`'s runs, plus ``device``
     and ``prepared``.
@@ -242,7 +280,7 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
                                       kwargs.get("prepared"))
     device = kwargs.get("device", "cuda")
     rng = check_random_state(kwargs.get("random_state", None))
-    if parallelism == "weights":
+    if model == "plsa" and parallelism == "weights":
         return _device_resident_plsa_runs(
             X, k, n_runs, rng,
             bootstrap=kwargs.get("bootstrap", True),
@@ -261,11 +299,15 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
     # one after another or in a thread pool
     seeds = [rng.randint(np.iinfo(np.int32).max) for _ in range(n_runs)]
 
+    create_topics = plsa_topics if model == "plsa" else nmf_topics
+
     def one_run(seed):
-        return plsa_topics(X, k, **dict(kwargs, random_state=seed))
+        return create_topics(X, k, **dict(kwargs, random_state=seed))
 
     if parallelism in ("joblib", "dask"):
-        if resolve_device(device).type == "cpu":
+        # the host solver's runs spread over threads on any device
+        host_bound = model == "nmf" and kwargs.get("solver", "mu") == "cd"
+        if host_bound or resolve_device(device).type == "cpu":
             if n_jobs != 1 and n_runs > 1:
                 import os
                 from concurrent.futures import ThreadPoolExecutor
@@ -438,8 +480,10 @@ def ensemble_fit(
     ``"fast"`` (bf16 responsibilities) moves each run's factors at bf16
     rounding level; the topic clustering is built to be stable under such
     run-to-run jitter. ``beta_loss``, ``alpha`` and ``solver`` are the NMF
-    runs' parameters, kept for the JAX package's signature; ``model="nmf"``
-    raises until NMF is ported. ``X`` may be a count matrix, a
+    runs' parameters (``model="nmf"``: KL or Frobenius multiplicative updates
+    on the device with ``solver="mu"``, host coordinate descent with
+    ``"cd"``); its final embedding solves for the documents against the
+    frozen stable topics by multiplicative updates. ``X`` may be a count matrix, a
     :class:`~enstop_torch.ops.driver.PreparedCounts` or a
     :class:`~enstop_torch.ops.sell.PreparedSell` (then its device wins over
     ``device``). ``backend="sparse"`` stages the sparse layout; on it the
@@ -459,7 +503,7 @@ def ensemble_fit(
     parallelism = resolve_parallelism(parallelism, model, backend, X if is_prepared else None)
     if is_prepared:
         prepared, X = X, None
-        if parallelism != "weights":
+        if model != "plsa" or parallelism != "weights":
             raise ValueError("Prepared input requires model='plsa' and parallelism='weights'")
         dev = (prepared.device if isinstance(prepared, PreparedSell)
                else prepared.device_array.device)
@@ -468,9 +512,9 @@ def ensemble_fit(
         X = check_counts(X, dtype=np.float32)
         dev = resolve_device(device)
         prepared = None
-        if parallelism == "weights" and backend == "sparse":
+        if model == "plsa" and parallelism == "weights" and backend == "sparse":
             prepared = prepare_sell(X, standardize=False, device=dev)
-        elif parallelism == "weights":
+        elif model == "plsa" and parallelism == "weights":
             prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
                                       standardize=False, device=dev)
     _sync(dev)
@@ -490,6 +534,9 @@ def ensemble_fit(
         tolerance=tolerance,
         e_step_thresh=e_step_thresh,
         bootstrap=bootstrap,
+        beta_loss=beta_loss,
+        alpha=alpha,
+        solver=solver,
         random_state=random_state,
         backend=backend,
         x_dtype=x_dtype,
@@ -497,6 +544,10 @@ def ensemble_fit(
         prepared=prepared,
         device=dev,
     )
+    if dev.type == "cuda" and not isinstance(all_topics, torch.Tensor):
+        # a stack fitted run by run comes back as numpy: the combine stage
+        # runs on the card all the same
+        all_topics = torch.from_numpy(all_topics).to(dev)
     _sync(dev)
     timings["runs_s"] = time.perf_counter() - t0
 
@@ -514,17 +565,22 @@ def ensemble_fit(
         stable_topics /= stable_topics.sum(axis=1, keepdims=True)
 
     t0 = time.perf_counter()
-    refit_input = prepared if prepared is not None else X
-    doc_vectors = plsa_refit(
-        refit_input,
-        stable_topics,
-        sample_weight=_check_sample_weight(None, refit_input, dtype=np.float32),
-        e_step_thresh=e_step_thresh,
-        random_state=random_state,
-        backend=backend,
-        precision=precision,
-        device=dev,
-    )
+    if model == "nmf":
+        doc_vectors, _ = nmf_fit_mu(X, stable_topics.shape[0], beta_loss=beta_loss,
+                                    H_init=stable_topics, update_H=False,
+                                    random_state=random_state, device=dev)
+    else:
+        refit_input = prepared if prepared is not None else X
+        doc_vectors = plsa_refit(
+            refit_input,
+            stable_topics,
+            sample_weight=_check_sample_weight(None, refit_input, dtype=np.float32),
+            e_step_thresh=e_step_thresh,
+            random_state=random_state,
+            backend=backend,
+            precision=precision,
+            device=dev,
+        )
     timings["refit_s"] = time.perf_counter() - t0
 
     ensemble_fit.last_timings = timings

@@ -311,7 +311,9 @@ def _plsa_fit_sparse(X, k, sample_weight, init, n_iter, n_iter_per_test, toleran
     Standardization is the estimators' job, as on the dense path."""
     prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
                                                               device=device)
-    p_z_given_d, p_w_given_z = plsa_init(prep, k, init=init, rng=rng)
+    # a data-dependent init reads the raw matrix
+    p_z_given_d, p_w_given_z = plsa_init(prep if isinstance(X, PreparedSell) else X, k,
+                                         init=init, rng=rng)
     weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
     t0 = time.perf_counter()
     zd, wz, n_steps, final_ll, ll_trace, n_tests = sell_fit(

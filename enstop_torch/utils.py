@@ -10,6 +10,7 @@ import scipy.sparse as sp
 
 __all__ = [
     "normalize",
+    "normalized",
     "standardize_input",
     "check_random_state",
     "_check_sample_weight",
@@ -24,6 +25,12 @@ def normalize(ndarray, axis=0):
     marginal = ndarray.sum(axis=axis, keepdims=True)
     ndarray /= np.where(marginal > 0.0, marginal, 1.0)
     return ndarray
+
+
+def normalized(array, axis=1):
+    """Out-of-place l1 normalisation along ``axis``; zero slices stay zero."""
+    marginal = array.sum(axis=axis, keepdims=True)
+    return array / np.where(marginal > 0.0, marginal, 1.0)
 
 
 def standardize_input(input_matrix):

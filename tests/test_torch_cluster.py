@@ -114,7 +114,7 @@ def test_host_umap_is_bit_identical(seed, n_groups, copies):
     _, dmat = _dmat(seed, n_groups, copies)
     for n_neighbors in (10, 15):
         got = port_umap.umap_embed(dmat=dmat, n_components=5, n_neighbors=n_neighbors,
-                                   random_state=seed)
+                                   random_state=seed, device="cpu")
         want = jax_umap.umap_embed(dmat=dmat, n_components=5, n_neighbors=n_neighbors,
                                    random_state=seed)
         np.testing.assert_array_equal(got, want)
@@ -128,7 +128,8 @@ def test_host_umap_is_bit_identical(seed, n_groups, copies):
     # the estimator facade, on raw points under the euclidean metric
     pts = np.random.RandomState(seed).rand(40, 6)
     np.testing.assert_array_equal(
-        port_umap.UMAP(n_components=3, n_neighbors=8, random_state=seed).fit_transform(pts),
+        port_umap.UMAP(n_components=3, n_neighbors=8, random_state=seed,
+                       device="cpu").fit_transform(pts),
         jax_umap.UMAP(n_components=3, n_neighbors=8, random_state=seed).fit_transform(pts))
 
 
@@ -168,8 +169,8 @@ def test_device_layout_combiner_recovers_groups(monkeypatch):
 def test_device_layout_deterministic():
     _, dmat = _dmat(7, 4, 10)
     runs = [port_umap.umap_embed(dmat=dmat, n_components=5, n_neighbors=10, random_state=42,
-                                 layout="device") for _ in range(2)]
+                                 layout="device", device="cpu") for _ in range(2)]
     np.testing.assert_array_equal(runs[0], runs[1])
     other = port_umap.umap_embed(dmat=dmat, n_components=5, n_neighbors=10, random_state=43,
-                                 layout="device")
+                                 layout="device", device="cpu")
     assert not np.array_equal(runs[0], other)

@@ -202,7 +202,8 @@ def test_umap_combiner_partition_matches_jax_on_the_same_stack(jax_stacks, monke
 
 def test_umap_combiner_labels_identical_given_the_same_dmat(jax_stacks):
     dmat = jax_hellinger(jax_stacks["default"][0])
-    emb = port_umap_embed(dmat=dmat, n_components=5, n_neighbors=15, random_state=0)
+    emb = port_umap_embed(dmat=dmat, n_components=5, n_neighbors=15, random_state=0,
+                          device="cpu")
     kw = dict(min_samples=3, min_cluster_size=4, cluster_selection_method="leaf",
               allow_single_cluster=True)
     ours, ref = PortHDBSCAN(**kw).fit(emb), JaxHDBSCAN(**kw).fit(emb)
@@ -314,9 +315,9 @@ def test_prepared_counts_and_checkpoints(corpus, tmp_path):
                                               device="cpu"),  # likewise
 ], ids=["nmf", "sparse", "sharded", "ensemble_fit_thresh", "resample_thresh"])
 def test_unported_routes_raise(request, corpus, call):
-    """NMF and the device mesh still raise; the sparse routes, ported since,
-    run (held against JAX below)."""
-    if request.node.callspec.id in ("nmf", "sharded"):
+    """The device mesh still raises; NMF and the sparse routes, ported since,
+    run (held against JAX below and in ``test_torch_nmf.py``)."""
+    if request.node.callspec.id == "sharded":
         with pytest.raises(NotImplementedError):
             call(corpus[0])
         return

@@ -18,7 +18,10 @@ def test_import_leaves_jax_and_sklearn_out():
     code = (
         "import sys, enstop_torch, enstop_torch.convert, enstop_torch.synthetic\n"
         "import enstop_torch.cluster, enstop_torch.models.ensemble, enstop_torch.ops.coo\n"
-        "import enstop_torch.ops.cuda_batch\n"
+        "import enstop_torch.ops.cuda_batch, enstop_torch.ops.nmf, enstop_torch.ops.metrics\n"
+        "import enstop_torch.models.streamed, enstop_torch.models.streamed_core\n"
+        "import enstop_torch.models.accelerated, enstop_torch.profiling\n"
+        "import enstop_torch.datasets\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'enstop_tpu', 'sklearn'))\n"
         "print(bad)\n"
@@ -41,8 +44,14 @@ def test_no_port_source_imports_jax():
 def test_exports():
     for name in ("PLSA", "EnsembleTopics", "ensemble_fit", "ensemble_of_topics",
                  "PreparedCounts", "prepare_counts", "PreparedSell", "prepare_sell",
-                 "plsa_fit", "plsa_refit", "normalize", "standardize_input", "LAUNCHES"):
+                 "plsa_fit", "plsa_refit", "normalize", "standardize_input", "LAUNCHES",
+                 "StreamedPLSA", "GPUPLSA", "TPUPLSA", "coherence", "log_lift",
+                 "mean_coherence", "mean_log_lift"):
         assert hasattr(enstop_torch, name)
+        assert name in enstop_torch.__all__
+    # the mesh estimators wait for their slice
+    for name in ("BlockParallelPLSA", "DistributedPLSA"):
+        assert not hasattr(enstop_torch, name)
     assert set(enstop_torch.LAUNCHES) == {
         "em", "refit", "ll", "em_bf16r", "refit_bf16r",
         "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",
@@ -67,3 +76,28 @@ def test_default_cuda_device_raises_without_a_card():
     assert ensemble.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         ensemble.fit(X)
+    for estimator in (enstop_torch.StreamedPLSA(n_components=3), enstop_torch.GPUPLSA(3),
+                      enstop_torch.EnsembleTopics(n_components=3, model="nmf")):
+        assert estimator.device == "cuda"
+        with pytest.raises(RuntimeError, match="cuda"):
+            estimator.fit(X)
+
+
+def test_umap_defaults_to_the_card():
+    """``umap_embed`` and the ``UMAP`` facade run on the card unless given
+    ``device="cpu"``: on this CPU-only host they raise rather than quietly
+    run the host layout."""
+    from enstop_torch.cluster.umap import UMAP, umap_embed
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only host")
+    pts = np.random.RandomState(0).rand(30, 4)
+    d = np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+    assert UMAP().device == "cuda"
+    for call in (lambda: umap_embed(dmat=d, n_neighbors=5, random_state=0),
+                 lambda: umap_embed(dmat=d, n_neighbors=5, random_state=0, layout="auto"),
+                 lambda: UMAP(n_neighbors=5, random_state=0).fit_transform(pts)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert umap_embed(dmat=d, n_neighbors=5, random_state=0, device="cpu").shape == (30, 5)
+    assert UMAP(n_neighbors=5, random_state=0, device="cpu").fit_transform(pts).shape == (30, 2)

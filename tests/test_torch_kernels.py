@@ -17,7 +17,13 @@ roundings fails. The batched kernel (#10) holds A and B to 1e-4 of the
 largest entry, as the dense fp32 modes do, repeats bit for bit, and gives
 each run the bits of a single-run ``em_accumulators_fused`` (the same
 operations in the same order: B by the row pass, A by the sparse word pass
-over a grid of runs).
+over a grid of runs). ``StreamedPLSA`` on the card (kernels #8 and #9 over
+blocks copied from pinned host memory) repeats bit for bit, stays bit for
+bit the same when every copy is held back, and agrees with its CPU run and
+the resident sparse fit (history rtol 1e-5, factors rtol 1e-3 / atol 1e-5).
+The NMF multiplicative updates on the card lie within 1e-3 of the largest
+entry of their CPU run after 50 steps (float32 products summed in another
+order).
 """
 
 import numpy as np
@@ -507,3 +513,77 @@ def test_batch_rows_equal_single_runs_on_row_edges(cuda, R, dtype):
     for r in range(R):
         B1, _ = cuda_em.refit_accumulators_fused(X, zds[r], wzs[r], ws[r], compute_ll=False)
         assert torch.equal(B[r], B1) and torch.equal(B_big[r], B1), r
+
+
+def _streamed_corpus():
+    from enstop_torch.synthetic import synthetic_corpus
+
+    return synthetic_corpus(n_docs=300, n_words=700, n_topics=8, seed=2)[0]
+
+
+STREAMED_KW = dict(n_components=8, n_iter=30, n_iter_per_test=5, tolerance=0, random_state=0)
+
+
+# one block (it stays on the card), two (each slot keeps its block) and five
+# (every block shipped every sweep)
+@pytest.mark.parametrize("block_size", [1000, 150, 64])
+def test_streamed_fit_on_cuda_matches_cpu_and_repeats(cuda, block_size):
+    X = _streamed_corpus()
+    kw = dict(block_size=block_size, **STREAMED_KW)
+    before = dict(cuda_em.LAUNCHES)
+    gpu = enstop_torch.StreamedPLSA(**kw).fit(X)
+    n_blocks = gpu.fit_info_["n_blocks"]
+    assert cuda_em.LAUNCHES["word_pass"] - before["word_pass"] == 30 * n_blocks
+    assert cuda_em.LAUNCHES["doc_pass"] - before["doc_pass"] == 30 * n_blocks
+    again = enstop_torch.StreamedPLSA(**kw).fit(X)
+    for name in ("components_", "embedding_", "history_"):
+        np.testing.assert_array_equal(getattr(gpu, name), getattr(again, name))
+    cpu = enstop_torch.StreamedPLSA(device="cpu", **kw).fit(X)
+    np.testing.assert_allclose(gpu.history_, cpu.history_, rtol=1e-5)
+    np.testing.assert_allclose(gpu.components_, cpu.components_, rtol=1e-3, atol=1e-5)
+    resident = enstop_torch.PLSA(backend="sparse", **STREAMED_KW).fit(X)
+    np.testing.assert_allclose(gpu.history_, resident.history_, rtol=1e-5)
+    np.testing.assert_allclose(gpu.transform(X[:40]), cpu.transform(X[:40]), rtol=1e-3,
+                               atol=1e-4)
+    if n_blocks > 2:
+        assert gpu.fit_info_["bytes_shipped"] >= 30 * gpu.fit_info_["bytes_per_sweep"]
+
+
+def test_streamed_fit_waits_for_a_slow_copy(cuda, monkeypatch):
+    """Each copy is held back on the copy stream by a spin of about 10 ms: a
+    block read before its copy lands, or a slot written while its block is
+    still read, would change the numbers; the fit and the refit stay bit for
+    bit the same."""
+    from enstop_torch.models import streamed_core
+
+    X = _streamed_corpus()
+    kw = dict(block_size=64, **STREAMED_KW)
+    base = enstop_torch.StreamedPLSA(**kw).fit(X)
+    base_embedding = base.transform(X[:130])
+    real = streamed_core._Streamer._ship
+
+    def slow(self, b, s, names):
+        with torch.cuda.stream(self.copy_stream):
+            torch.cuda._sleep(20_000_000)
+        return real(self, b, s, names)
+
+    monkeypatch.setattr(streamed_core._Streamer, "_ship", slow)
+    slowed = enstop_torch.StreamedPLSA(**kw).fit(X)
+    for name in ("components_", "embedding_", "history_"):
+        np.testing.assert_array_equal(getattr(slowed, name), getattr(base, name))
+    np.testing.assert_array_equal(slowed.transform(X[:130]), base_embedding)
+
+
+def test_nmf_on_cuda_matches_cpu(cuda):
+    from enstop_torch.ops.nmf import nmf_fit_mu
+
+    X = _streamed_corpus()
+    for beta_loss in (1, 2):
+        W, H = nmf_fit_mu(X, 8, beta_loss=beta_loss, n_iter=50, random_state=0)
+        W0, H0 = nmf_fit_mu(X, 8, beta_loss=beta_loss, n_iter=50, random_state=0, device="cpu")
+        for got, want in ((W, W0), (H, H0)):
+            assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+    model = enstop_torch.EnsembleTopics(n_components=8, model="nmf", n_starts=4,
+                                        random_state=0).fit(X)
+    assert model.n_components_ >= 2 and np.all(np.isfinite(model.embedding_))
+    np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)

@@ -181,21 +181,18 @@ def test_pad_state_and_warm_start():
     dict(e_step_thresh=1e-16),
 ], ids=["fast", "sparse", "nndsvd", "nmf", "e_step_thresh"])
 def test_unported_options_raise(kwargs):
-    """The options still to port raise; ``precision="fast"``, the sparse
-    backend and a firing ``e_step_thresh``, ported since, fit and transform
-    (held against JAX in ``test_torch_fast.py`` and below)."""
+    """The options once unported all fit and transform now:
+    ``precision="fast"``, the sparse backend, the ``"nndsvd"`` and ``"nmf"``
+    inits and a firing ``e_step_thresh`` (held against JAX in
+    ``test_torch_fast.py``, ``test_torch_nmf.py`` and below)."""
     model = enstop_torch.PLSA(n_components=3, device="cpu", **kwargs)
-    if "init" not in kwargs:
-        X = _counts()
-        emb = model.fit_transform(X)
-        assert emb.shape == (X.shape[0], 3) and np.all(np.isfinite(emb))
-        np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)
-        assert np.all(np.isfinite(model.transform(X[:10])))
-        sparse = kwargs != dict(precision="fast")
-        assert (model.fit_info_["backend"] == "sparse") == sparse
-        return
-    with pytest.raises(NotImplementedError):
-        model.fit(_counts())
+    X = _counts()
+    emb = model.fit_transform(X)
+    assert emb.shape == (X.shape[0], 3) and np.all(np.isfinite(emb))
+    np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)
+    assert np.all(np.isfinite(model.transform(X[:10])))
+    sparse = "backend" in kwargs or "e_step_thresh" in kwargs
+    assert (model.fit_info_["backend"] == "sparse") == sparse
 
 
 def _sparse_init(X, k, seed=8):
