@@ -37,7 +37,21 @@ launch counts set to 0 just before it and read just after:
 11. at 20NG: ``EnsembleTopics(model="nmf", n_components=20, n_starts=16)``
     (each run's KL multiplicative updates on the sparse word and doc passes),
     ``PLSA(init="nndsvd")`` and ``PLSA(init="nmf")``, and the topic metrics
-    of phase 3's model (phase 14).
+    of phase 3's model (phase 14);
+12. the device mesh on the one card (phase 15), its tiles, shards and
+    runs-shards laid on cuda:0 by a ``_devices()`` override, after the dense
+    kernels on two tiles of a 2 x 2 mesh and the sparse passes on one of
+    config C's four docs shards are held against their plain versions:
+    (a) ``BlockParallelPLSA`` on its default mesh (1 x 1) at 20NG, 100
+    iterations, bit for bit phase 3's ``PLSA.fit``, and its ``transform``;
+    (b) a 2 x 2 mesh of four tiles, fit and ``transform``, its final LL within
+    1e-5 of (a)'s, a repeat fit bit for bit; (c) ``DistributedPLSA(layout=
+    "sparse")`` over 4 docs shards at config C, within 1e-5 of phase 9's fit;
+    (d) ``BlockParallelPLSA(e_step_thresh=1e-16)`` over 4 docs shards at
+    20NG, within 1e-5 of phase 10's; (e) ``EnsembleTopics(parallelism=
+    "sharded")`` at 20NG, 16 runs over 4 runs-shards, its topic stack bit for
+    bit that of the same runs on 1 runs-shard. Each path's wall, EM-loop time
+    and peak device memory is printed beside its single-device counterpart's.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -133,6 +147,9 @@ STREAM_BLOCK = 65_536                        # StreamedPLSA's default: 4 blocks 
 STREAMED = dict(n_components=20, block_size=STREAM_BLOCK, n_iter=100, n_iter_per_test=10,
                 tolerance=0, random_state=0, device="cuda")
 NMF_ENSEMBLE = dict(n_components=20, n_starts=16, random_state=0)
+MESH = dict(n_components=20, n_iter=100, n_iter_per_test=10, tolerance=0, random_state=0,
+            device="cuda")                   # phase 15, as phase 3's PLSA
+MESH_LL_RTOL = 1e-5  # a mesh fit's final LL against its single-device counterpart's
 
 
 def check(ok, what):
@@ -662,6 +679,221 @@ def surface_phase(X, model, cuda_em, em, totals):
     print(f"  phase 3 model's metrics {json.dumps(metrics)} in "
           f"{time.perf_counter() - t0:.3f} s; phase 14 took {time.perf_counter() - t_phase:.1f} s")
     check(all(np.isfinite(v) for v in metrics.values()), "finite topic metrics")
+
+
+def on_one_card(cls, n_tiles):
+    """``cls`` with a ``_devices()`` that names the first card ``n_tiles``
+    times: the mesh then lays ``n_tiles`` tiles, shards or runs-shards on it."""
+    card = torch.device("cuda", 0)
+    return type(f"{cls.__name__}On{n_tiles}", (cls,), {"_devices": lambda self: [card] * n_tiles})
+
+
+def timed_fit(make, X):
+    """``(fitted model, wall s, peak device bytes above what was allocated
+    before)`` of ``make().fit(X)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = make().fit(X)
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def sparse_mesh_loop_s(X, e_step_thresh=None):
+    """Seconds of the sparse docs mesh's EM loop alone, four shards on cuda:0
+    packed beforehand, from the init and schedule of phase 15's fits, to the
+    topics on the host."""
+    from enstop_torch.ops.init import plsa_init
+    from enstop_torch.parallel import sparse_mesh as sm
+
+    card = torch.device("cuda", 0)
+    mesh = sm.make_docs_mesh(devices=[card] * 4)
+    preps, bounds, n, _ = sm.shard_sell(mesh, X)
+    zd0, wz0 = plsa_init(X, MESH["n_components"], rng=np.random.RandomState(MESH["random_state"]))
+    run = sm.build_sharded_sparse_fit(mesh, MESH["n_iter"], MESH["n_iter_per_test"],
+                                      e_step_thresh=e_step_thresh)
+    zd = sm._scatter_doc_sharded(mesh, zd0, bounds)
+    w = sm._scatter_doc_sharded(mesh, np.ones(n, np.float32), bounds)
+    wz = torch.from_numpy(wz0).to(card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(preps, zd, wz, w, MESH["tolerance"]).state[1].cpu()
+    return time.perf_counter() - t0
+
+
+def mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model, walls, cuda_em,
+               em, cuda_sparse, totals):
+    """Phase 15: the device mesh on one card, its tiles, shards and
+    runs-shards laid on cuda:0 through a ``_devices()`` override. Returns
+    the kernels' largest absolute errors at the mesh's shapes."""
+    from enstop_torch.models import ensemble as ens
+    from enstop_torch.parallel import mesh as mesh_lib
+    from enstop_torch.parallel.sparse_mesh import make_docs_mesh, shard_sell
+    import enstop_torch
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    # the kernels at the mesh's shapes against their plain versions: two of
+    # the 2 x 2 mesh's tiles (both row and both column halves) and the first
+    # of config C's four docs shards
+    worst = {}
+    tiles, _, _ = mesh_lib.stage_sharded_counts(mesh_lib.make_mesh(2, 2, [card] * 4), X)
+    for i, j in ((0, 0), (1, 1)):
+        Xt = tiles[i][j].device_array
+        for name, err in compare_kernels(f"20NG tile ({i}, {j}) {Xt.shape[0]}x{Xt.shape[1]} "
+                                         "k=20", Xt, 20, cuda_em, em).items():
+            worst[name] = max(worst.get(name, 0.0), err)
+    preps = shard_sell(make_docs_mesh(devices=[card] * 4), XC)[0]
+    worst.update(compare_sparse(f"config C docs shard 0 ({preps[0].n} docs)", preps[0], 20,
+                                cuda_sparse))
+    del tiles, preps
+    print("phase 15 kernels at the mesh's shapes vs plain: ok, largest abs err",
+          json.dumps(worst))
+
+    Block4, Dist4, Ens4 = (on_one_card(cls, 4) for cls in (
+        enstop_torch.BlockParallelPLSA, enstop_torch.DistributedPLSA, enstop_torch.EnsembleTopics))
+    flat, flat_wall, flat_peak = timed_fit(lambda: enstop_torch.PLSA(**MESH), X)
+
+    # (a) the default mesh: 1 x 1 on one card, PLSA's fit bit for bit
+    reset_counts(cuda_em, em)
+    one, one_wall, one_peak = timed_fit(lambda: enstop_torch.BlockParallelPLSA(**MESH), X)
+    emb_one = one.transform(docs)
+    a_launches = read_counts("(a) BlockParallelPLSA 1 x 1 fit + transform",
+                             ("em", "word_pass", "refit"), cuda_em, em, totals)
+    same = all(np.array_equal(getattr(one, a), getattr(model, a))
+               for a in ("components_", "embedding_", "history_"))
+    print(f"phase 15 (a) BlockParallelPLSA on its default mesh "
+          f"{one._make_mesh().shape}: fit {one_wall:.3f} s wall "
+          f"({one.fit_info_['wall_time_s']:.4f} s in the EM loop), PLSA.fit {flat_wall:.3f} s "
+          f"({flat.fit_info_['wall_time_s']:.4f} s); peak device memory {one_peak / 2**20:.1f} "
+          f"MiB, PLSA {flat_peak / 2**20:.1f} MiB; factors and history against phase 3's "
+          f"PLSA.fit: {'bit for bit the same' if same else 'DIFFER'}")
+    check(one._make_mesh().shape == {"docs": 1, "vocab": 1}, "the default mesh is 1 x 1")
+    check(same, "a 1 x 1 mesh fit is PLSA.fit bit for bit")
+
+    # (b) four tiles of a 2 x 2 mesh on the one card
+    reset_counts(cuda_em, em)
+    four, four_wall, four_peak = timed_fit(
+        lambda: Block4(n_row_blocks=2, n_col_blocks=2, **MESH), X)
+    fit_launches = dict(cuda_em.LAUNCHES)
+    t0 = time.perf_counter()
+    emb_four = four.transform(docs)
+    transform_wall = time.perf_counter() - t0
+    launches = read_counts("(b) BlockParallelPLSA 2 x 2 fit + transform",
+                           ("em", "word_pass", "refit"), cuda_em, em, totals)
+    ll_a, ll_b = one.fit_info_["log_likelihood"], four.fit_info_["log_likelihood"]
+    gap = abs(ll_b - ll_a) / abs(ll_a)
+    embed_gap = float(np.abs(emb_four - emb_one).max())
+    again = Block4(n_row_blocks=2, n_col_blocks=2, **MESH).fit(X)
+    repeat = all(np.array_equal(getattr(again, a), getattr(four, a))
+                 for a in ("components_", "embedding_", "history_"))
+    print(f"phase 15 (b) 2 x 2 mesh, four tiles on cuda:0: fit {four_wall:.3f} s wall "
+          f"({four.fit_info_['wall_time_s']:.4f} s in the EM loop; 1 x 1 "
+          f"{one.fit_info_['wall_time_s']:.4f} s), transform of {N_TRANSFORM} docs "
+          f"{transform_wall:.3f} s; peak device memory {four_peak / 2**20:.1f} MiB; final LL "
+          f"{ll_b:.6f} vs 1 x 1 {ll_a:.6f}, rel gap {gap:.3e}; n_iter_ {four.n_iter_}; "
+          f"transform max abs gap to 1 x 1 {embed_gap:.3e}; repeat fit "
+          f"{'bit for bit the same' if repeat else 'DIFFERS'}; fit launches "
+          f"{json.dumps(fit_launches)}")
+    check(four._make_mesh().shape == {"docs": 2, "vocab": 2}, "the mesh is 2 x 2")
+    check(fit_launches["em"] == fit_launches["word_pass"] == 4 * a_launches["em"]
+          == 4 * MESH["n_iter"], "every EM step ran #1 and #8 on each of the four tiles")
+    check(launches["refit"] > fit_launches["refit"]
+          and (launches["refit"] - fit_launches["refit"]) % 4 == 0,
+          "transform ran #2 on each of the four tiles")
+    check(gap <= MESH_LL_RTOL and four.n_iter_ == one.n_iter_,
+          "the 2 x 2 fit agrees with the 1 x 1 fit")
+    check(embed_gap <= EMBED_ATOL, "the 2 x 2 transform agrees with the 1 x 1 transform")
+    check(repeat, "repeat 2 x 2 fits are bit for bit the same")
+    check_distributions(four.components_, "2 x 2 topics")
+    del again
+
+    # (c) the sparse docs mesh at config C, four shards on the one card
+    reset_counts(cuda_em, em)
+    dist, c_wall, c_peak = timed_fit(lambda: Dist4(layout="sparse", **MESH), XC)
+    launches = read_counts("(c) DistributedPLSA(layout='sparse') at config C",
+                           ("word_pass", "doc_pass"), cuda_em, em, totals)
+    ll_c, ll_9 = dist.fit_info_["log_likelihood"], sparse_model.fit_info_["log_likelihood"]
+    gap = abs(ll_c - ll_9) / abs(ll_9)
+    print(f"phase 15 (c) DistributedPLSA(layout='sparse') at config C, 4 docs shards on cuda:0: "
+          f"fit {c_wall:.3f} s wall ({dist.fit_info_['wall_time_s']:.3f} s with the shards' "
+          f"packing, {sparse_mesh_loop_s(XC):.3f} s in the EM loop; phase 9's resident fit "
+          f"{sparse_model.fit_info_['wall_time_s']:.3f} s in the EM loop); peak device memory "
+          f"{c_peak / 2**20:.1f} MiB (phase 9 {resident_peak / 2**20:.1f} MiB); final LL "
+          f"{ll_c:.6f} vs phase 9 {ll_9:.6f}, rel gap {gap:.3e}")
+    check(launches["word_pass"] == 4 * MESH["n_iter"], "each step ran #8 on each of 4 shards")
+    check(all(launches[k] == 0 for k in ("em", "refit", "ll", "em_bf16r", "refit_bf16r")),
+          "the sparse mesh launched no dense kernel")
+    check(gap <= MESH_LL_RTOL and dist.n_iter_ == sparse_model.n_iter_,
+          "the sparse mesh fit agrees with phase 9's resident sparse fit")
+    check_distributions(dist.components_, "sparse mesh topics")
+    del dist
+
+    # (d) a firing threshold routes BlockParallelPLSA to the sparse docs mesh
+    reset_counts(cuda_em, em)
+    thresh, d_wall, d_peak = timed_fit(lambda: Block4(e_step_thresh=1e-16, **MESH), X)
+    launches = read_counts("(d) BlockParallelPLSA(e_step_thresh=1e-16) fit",
+                           ("word_pass_thresh", "doc_pass_thresh"), cuda_em, em, totals)
+    ll_d, ll_10 = thresh.fit_info_["log_likelihood"], thresh_model.fit_info_["log_likelihood"]
+    gap = abs(ll_d - ll_10) / abs(ll_10)
+    print(f"phase 15 (d) BlockParallelPLSA(e_step_thresh=1e-16) at 20NG, 4 docs shards: fit "
+          f"{d_wall:.3f} s wall ({thresh.fit_info_['wall_time_s']:.3f} s with the shards' "
+          f"packing, {sparse_mesh_loop_s(X, 1e-16):.3f} s in the EM loop; phase 10 "
+          f"{thresh_model.fit_info_['wall_time_s']:.3f} s in the EM loop); peak device memory "
+          f"{d_peak / 2**20:.1f} MiB; final LL {ll_d:.6f} vs phase 10 {ll_10:.6f}, rel gap "
+          f"{gap:.3e}")
+    check(launches["word_pass_thresh"] == launches["doc_pass_thresh"] == 4 * MESH["n_iter"]
+          and launches["em"] == 0, "the thresholded passes ran on each shard, no dense step")
+    check(gap <= MESH_LL_RTOL, "the thresholded mesh fit agrees with phase 10's")
+
+    # (e) the runs-sharded ensemble: 16 runs over 4 runs-shards on the one card
+    captured = {}
+    run_all = ens._ensemble_of_topics_device
+
+    def keep_stack(*args, **kwargs):
+        captured["call"] = (args, kwargs)
+        captured["stack"] = run_all(*args, **kwargs)
+        return captured["stack"]
+
+    ens._ensemble_of_topics_device = keep_stack
+    try:
+        reset_counts(cuda_em, em)
+        ens4, e_wall, e_peak = timed_fit(
+            lambda: Ens4(parallelism="sharded", device="cuda", **ENSEMBLE), X)
+        timings = dict(ens.ensemble_fit.last_timings)
+        read_counts("(e) sharded ensemble fit, 4 runs-shards", ("em", "word_pass", "refit"),
+                    cuda_em, em, totals)
+    finally:
+        ens._ensemble_of_topics_device = run_all
+    stack4 = captured["stack"]
+    args, kwargs = captured["call"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stack1 = run_all(*args, **{**kwargs, "devices": [card]})  # one runs-shard
+    torch.cuda.synchronize()
+    one_shard_s = time.perf_counter() - t0
+    one_shard_peak = torch.cuda.max_memory_allocated() - base
+    same = torch.equal(stack4, stack1)
+    fit_s, _, single = walls["default"]
+    print(f"phase 15 (e) EnsembleTopics(parallelism='sharded'), {ENSEMBLE['n_starts']} runs on "
+          f"4 runs-shards of cuda:0: n_components_ {ens4.n_components_}, fit_transform "
+          f"{e_wall:.3f} s wall (phase 7's weights fan-out {fit_s:.3f} s), runs "
+          f"{timings['runs_s']:.3f} s (phase 7 {single['runs_s']:.3f} s; the same runs on 1 "
+          f"runs-shard {one_shard_s:.3f} s), "
+          f"last_timings {json.dumps(timings)}; peak device memory {e_peak / 2**20:.1f} MiB, "
+          f"staging included (the 1-shard runs on the staged corpus "
+          f"{one_shard_peak / 2**20:.1f} MiB); topic stack on 4 runs-shards "
+          f"vs 1: {'bit for bit the same' if same else 'DIFFERS'}")
+    check(tuple(stack4.shape) == (ENSEMBLE["n_starts"] * 20, X.shape[1])
+          and stack4.device.type == "cuda", "the sharded stack is (320, n_words) on the card")
+    check(same, "the sharded stack is the same at 4 runs-shards and at 1")
+    check(ens4.n_components_ >= 2, "the sharded ensemble finds at least two stable topics")
+    check_distributions(ens4.components_, "sharded ensemble topics")
+    check_distributions(ens4.embedding_, "sharded ensemble embedding")
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return worst
 
 
 def main():
@@ -1286,6 +1518,9 @@ def main():
                                     cuda_sparse, totals).items():
         worst[name] = max(worst[name], err)
     surface_phase(X, model, cuda_em, em, totals)
+    for name, err in mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model,
+                                walls, cuda_em, em, cuda_sparse, totals).items():
+        worst[name] = max(worst[name], err)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -2,8 +2,10 @@
 
 ``PLSA`` (and ``GPUPLSA``, ``PLSA`` pinned to the CUDA kernels; ``TPUPLSA``
 is the same class under the JAX package's name), the ``EnsembleTopics``
-ensemble of pLSA or NMF runs, and ``StreamedPLSA``, which streams a corpus
-larger than the card through it block by block, with hand-written CUDA EM
+ensemble of pLSA or NMF runs, ``StreamedPLSA``, which streams a corpus
+larger than the card through it block by block, and the mesh estimators
+``BlockParallelPLSA`` and ``DistributedPLSA``, which lay the corpus over a
+grid of devices (or of tiles on one card), with hand-written CUDA EM
 kernels on an NVIDIA GPU (``device="cuda"``), or the plain PyTorch ops on the
 CPU (``device="cpu"``), on a padded dense corpus (``prepare_counts``) or the
 O(nnz) sparse layout (``backend="sparse"``, ``prepare_sell``); and the topic
@@ -13,6 +15,7 @@ torch, numpy and scipy only.
 
 from .models.accelerated import GPUPLSA, TPUPLSA
 from .models.ensemble import EnsembleTopics, ensemble_fit, ensemble_of_topics
+from .models.mesh import BlockParallelPLSA, DistributedPLSA
 from .models.plsa import PLSA
 from .models.streamed import StreamedPLSA
 from .ops.cuda_em import LAUNCHES
@@ -26,6 +29,8 @@ __all__ = [
     "GPUPLSA",
     "TPUPLSA",
     "StreamedPLSA",
+    "BlockParallelPLSA",
+    "DistributedPLSA",
     "EnsembleTopics",
     "ensemble_fit",
     "ensemble_of_topics",

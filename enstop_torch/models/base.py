@@ -256,9 +256,11 @@ def _estimator_class(name):
     an alias); here ``TPUPLSA`` is the alias of ``GPUPLSA``."""
     from .accelerated import GPUPLSA
     from .ensemble import EnsembleTopics
+    from .mesh import BlockParallelPLSA, DistributedPLSA
     from .plsa import PLSA
     from .streamed import StreamedPLSA
 
-    classes = {c.__name__: c for c in (PLSA, EnsembleTopics, StreamedPLSA, GPUPLSA)}
+    classes = {c.__name__: c for c in (PLSA, EnsembleTopics, StreamedPLSA, GPUPLSA,
+                                       BlockParallelPLSA, DistributedPLSA)}
     classes["TPUPLSA"] = GPUPLSA
     return classes.get(name)

@@ -28,8 +28,12 @@ coordinate descent on the host (``solver="cd"``); the stack then joins the
 card for the combine stage, and the final embedding is ``nmf_fit_mu`` against
 the frozen stable topics.
 
-Not ported yet, and raising ``NotImplementedError``: ``parallelism="sharded"``
-for pLSA (the device mesh).
+``parallelism="sharded"`` lays the pLSA runs over a runs mesh
+(:mod:`enstop_torch.parallel.mesh`): the runs are cut into contiguous blocks,
+one a device, and each device fits its block against its own replica of the
+staged corpus (devices named more than once share one). ``"auto"`` picks it
+when the runs divide over more than one device. A run's result does not
+depend on its block, so the stack is the same for any number of shards.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..ops.driver import (PreparedCounts, _warn_fast_unsupported, fit_padded, ke
 from ..ops.init import plsa_init
 from ..ops.nmf import nmf_cd, nmf_fit_mu
 from ..ops.sell import PreparedSell, prepare_sell, sell_fit
+from ..parallel import mesh as mesh_lib
 from ..utils import _check_sample_weight, check_random_state, normalized
 from .base import TopicModelBase, check_counts
 
@@ -136,25 +141,53 @@ def nmf_topics(X, k, **kwargs):
 # ensemble fan-out
 # ---------------------------------------------------------------------------
 
-def resolve_parallelism(parallelism, model="plsa", backend="auto", prepared=None):
-    """``"auto"`` is ``"weights"`` for pLSA (one device), ``"resample"``
-    otherwise; for pLSA ``"sharded"`` has no sparse variant (a
-    ``ValueError`` for ``backend="sparse"`` or a :class:`PreparedSell`) and
-    needs the device mesh, which is not ported yet. Other names pass
-    through; NMF runs every name but ``"joblib"``/``"dask"`` as
-    ``"resample"``."""
+def _run_devices(devices, device, prepared=None):
+    """The devices the runs may use: ``devices``, else every card of the
+    corpus's device (:func:`~enstop_torch.parallel.mesh.local_devices`)."""
+    if devices is not None:
+        return list(devices)
+    if isinstance(prepared, PreparedSell):
+        device = prepared.device
+    elif isinstance(prepared, PreparedCounts):
+        device = prepared.device_array.device
+    return mesh_lib.local_devices(device)
+
+
+def resolve_parallelism(parallelism, model="plsa", backend="auto", n_runs=16, prepared=None,
+                        devices=None):
+    """The fan-out by topology, as in the JAX package. ``devices``: those the
+    runs may use (None: one). For pLSA ``"auto"`` is ``"sharded"`` when the
+    runs divide over more than one device, else ``"weights"``; sparse input
+    (``backend="sparse"`` or a :class:`PreparedSell`) always ``"weights"``,
+    and an explicit ``"sharded"`` on it raises ``ValueError`` (it has no
+    sparse variant); an explicit ``"sharded"`` on one device warns and runs.
+    For NMF ``"auto"`` is ``"resample"``, and every name but
+    ``"joblib"``/``"dask"`` runs as ``"resample"``. An unknown name raises
+    ``ValueError``."""
+    if parallelism not in PARALLELISM:
+        raise ValueError(f"Unrecognized parallelism {parallelism!r}; should be one of "
+                         f"{tuple(sorted(PARALLELISM))}")
+    n_devices = 1 if devices is None else len(devices)
+    sparse_input = backend == "sparse" or isinstance(prepared, PreparedSell)
     if parallelism == "auto":
-        return "weights" if model == "plsa" else "resample"
-    if parallelism == "sharded" and model == "plsa" and (
-            backend == "sparse" or isinstance(prepared, PreparedSell)):
-        raise ValueError(
-            "parallelism='sharded' has no sparse variant: the weights fan-out on the "
-            "sparse layout is the sparse program; use parallelism='weights' or 'auto' "
-            "with backend='sparse'")
+        if model != "plsa":
+            return "resample"
+        if sparse_input:
+            return "weights"
+        return "sharded" if mesh_lib.largest_divisor(n_runs, n_devices) > 1 else "weights"
     if parallelism == "sharded" and model == "plsa":
-        raise NotImplementedError(
-            "parallelism='sharded' (the runs sharded over a device mesh) is not "
-            "ported yet (ROADMAP.md); use 'auto' or 'weights' on one device")
+        if sparse_input:
+            raise ValueError(
+                "parallelism='sharded' has no sparse variant: the weights fan-out on the "
+                "sparse layout is the sparse program; use parallelism='weights' or 'auto' "
+                "with backend='sparse'")
+        if n_devices == 1:
+            warnings.warn(
+                "parallelism='sharded' on a single device fits the runs one after another "
+                "in one shard, as 'weights' does (it exists for a fan-out over several "
+                "devices); use parallelism='auto' to route by topology",
+                stacklevel=3,
+            )
     return parallelism
 
 
@@ -242,44 +275,100 @@ def _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap=True, init
     return torch.cat(topics, dim=0)
 
 
+def _sharded_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random", n_iter=100,
+                       n_iter_per_test=10, tolerance=0.001, backend="auto", precision="default",
+                       x_dtype="auto", prepared=None, devices=None):
+    """``n_runs`` bootstrap fits over a runs mesh of ``devices``
+    (:func:`~enstop_torch.parallel.mesh.build_ensemble_runs_sharded`), as many
+    shards as the largest divisor of ``n_runs`` the devices allow. Draws
+    from ``rng`` in the JAX package's sharded order: every run's
+    ``multinomial(n, 1/n)`` first, then one ``randint`` for the init seed
+    with ``init="random"`` (run ``i`` seeds its device generator with
+    ``seed * 2**20 + i``, as in the weights fan-out), or one init a run. The
+    ``(n_runs * k, m)`` stack lies on the staged corpus's device."""
+    mesh = mesh_lib.make_runs_mesh(mesh_lib.largest_divisor(n_runs, len(devices)), devices)
+    if prepared is None:
+        prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype, standardize=False,
+                                  device=mesh.devices[0])
+    n, m = prepared.n, prepared.m
+    n_pad, m_pad = prepared.device_array.shape
+    kp = round_up(k, K_MULTIPLE)
+    uniform = np.full(n, 1.0 / n)
+    ws = [pad_vector((rng.multinomial(n, uniform) if bootstrap else np.ones(n)).astype(
+        np.float32), n_pad) for _ in range(n_runs)]
+    if init == "random":
+        base_seed = int(rng.randint(np.iinfo(np.int32).max))
+
+        def factors(i, dev):
+            return _device_init(n_pad, kp, n, k, m_pad, m, base_seed * (1 << 20) + i, dev)
+    else:
+        host = [pad_factors(*plsa_init(prepared if X is None else X, k, init=init, rng=rng),
+                            n_pad, m_pad) for _ in range(n_runs)]
+
+        def factors(i, dev):
+            return tuple(torch.from_numpy(a).to(dev) for a in host[i])
+
+    def inputs(i, dev):
+        return (*factors(i, dev), torch.from_numpy(ws[i]).to(dev))
+
+    run = mesh_lib.build_ensemble_runs_sharded(mesh, precision)
+    home = prepared.device_array.device
+    return torch.cat([wz[:k, :m].to(home)
+                      for wz in run(prepared, n_runs, inputs, tolerance, n_iter, n_iter_per_test)])
+
+
 def ensemble_of_topics(X, k, model="plsa", n_jobs=4, n_runs=16, parallelism="auto",
                        **kwargs):
     """Generate ``n_runs * k`` candidate topics as a writable numpy array.
 
     ``parallelism``:
-      * ``"auto"`` (default): ``"weights"``;
+      * ``"auto"`` (default): ``"sharded"`` when the runs divide over more
+        than one device, else ``"weights"`` (see :func:`resolve_parallelism`);
       * ``"weights"``: bootstraps as document weights against one staged copy
         of the corpus (the single-device path);
+      * ``"sharded"``: the same runs cut into blocks over a runs mesh, each
+        block on its own device against its own copy of the corpus;
       * ``"resample"`` / ``"none"``: a materialised row resample per run, fits
         run one after another;
       * ``"joblib"`` / ``"dask"``: the same runs in a thread pool of ``n_jobs``
         workers where they run on the host (the CPU device, or NMF's
-        ``solver="cd"``); otherwise they warn and run one after another;
-      * ``"sharded"``: raises ``NotImplementedError`` for pLSA (no device
-        mesh yet).
+        ``solver="cd"``); otherwise they warn and run one after another.
 
-    Keyword arguments: those of :func:`ensemble_fit`'s runs, plus ``device``
-    and ``prepared``.
+    Keyword arguments: those of :func:`ensemble_fit`'s runs, plus ``device``,
+    ``devices`` and ``prepared``.
     """
+    _check_model(model)
+    devices = _run_devices(kwargs.pop("devices", None), kwargs.get("device", "cuda"),
+                           kwargs.get("prepared"))
+    parallelism = resolve_parallelism(parallelism, model, kwargs.get("backend", "auto"),
+                                      n_runs, kwargs.get("prepared"), devices)
     out = _ensemble_of_topics_device(X, k, model=model, n_jobs=n_jobs, n_runs=n_runs,
-                                     parallelism=parallelism, **kwargs)
+                                     parallelism=parallelism, devices=devices, **kwargs)
     if isinstance(out, torch.Tensor):
         return np.array(out.cpu())
     return out
 
 
 def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
-                               parallelism="auto", **kwargs):
-    """Internal fan-out: the ``"weights"`` path returns the stack as a tensor
-    on the device."""
-    if parallelism not in PARALLELISM:
-        raise ValueError(f"Unrecognized parallelism {parallelism!r}; should be one of "
-                         f"{tuple(sorted(PARALLELISM))}")
-    _check_model(model)
-    parallelism = resolve_parallelism(parallelism, model, kwargs.get("backend", "auto"),
-                                      kwargs.get("prepared"))
+                               parallelism="weights", **kwargs):
+    """Internal fan-out, for a resolved ``parallelism``: the ``"weights"``
+    and ``"sharded"`` paths return the stack as a tensor on the device."""
     device = kwargs.get("device", "cuda")
     rng = check_random_state(kwargs.get("random_state", None))
+    if model == "plsa" and parallelism == "sharded":
+        return _sharded_plsa_runs(
+            X, k, n_runs, rng,
+            bootstrap=kwargs.get("bootstrap", True),
+            init=kwargs.get("init", "random"),
+            n_iter=kwargs.get("n_iter", 100),
+            n_iter_per_test=kwargs.get("n_iter_per_test", 10),
+            tolerance=kwargs.get("tolerance", 0.001),
+            backend=kwargs.get("backend", "auto"),
+            precision=kwargs.get("precision", "default"),
+            x_dtype=kwargs.get("x_dtype", "auto"),
+            prepared=kwargs.get("prepared"),
+            devices=kwargs["devices"],
+        )
     if model == "plsa" and parallelism == "weights":
         return _device_resident_plsa_runs(
             X, k, n_runs, rng,
@@ -468,6 +557,7 @@ def ensemble_fit(
     x_dtype="auto",
     precision="default",
     device="cuda",
+    devices=None,
 ):
     """Full ensemble pipeline; returns ``(doc_vectors, stable_topics)`` as numpy.
 
@@ -490,7 +580,10 @@ def ensemble_fit(
     runs, which have no bf16 mode, warn at ``"fast"`` and run fp32.
     ``e_step_thresh`` goes to the final refit: a :class:`PreparedCounts`
     refits dense whatever its value, the sparse layout and raw input above
-    1e-30 refit sparse and apply it exactly.
+    1e-30 refit sparse and apply it exactly. ``devices``: those the
+    ``"sharded"`` fan-out lays its runs over and ``"auto"`` counts (by
+    default every card of the corpus's device; one device may be named more
+    than once).
     """
     _check_model(model)
     cuda_em._check_precision(precision)
@@ -500,11 +593,14 @@ def ensemble_fit(
     timings = {}
     t0 = time.perf_counter()
     is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
-    parallelism = resolve_parallelism(parallelism, model, backend, X if is_prepared else None)
+    devices = _run_devices(devices, device, X if is_prepared else None)
+    parallelism = resolve_parallelism(parallelism, model, backend, n_starts,
+                                      X if is_prepared else None, devices)
     if is_prepared:
         prepared, X = X, None
-        if model != "plsa" or parallelism != "weights":
-            raise ValueError("Prepared input requires model='plsa' and parallelism='weights'")
+        if model != "plsa" or parallelism not in ("weights", "sharded"):
+            raise ValueError("Prepared input requires model='plsa' and parallelism='weights' "
+                             "or 'sharded'")
         dev = (prepared.device if isinstance(prepared, PreparedSell)
                else prepared.device_array.device)
     else:
@@ -514,7 +610,7 @@ def ensemble_fit(
         prepared = None
         if model == "plsa" and parallelism == "weights" and backend == "sparse":
             prepared = prepare_sell(X, standardize=False, device=dev)
-        elif model == "plsa" and parallelism == "weights":
+        elif model == "plsa" and parallelism in ("weights", "sharded"):
             prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
                                       standardize=False, device=dev)
     _sync(dev)
@@ -543,6 +639,7 @@ def ensemble_fit(
         precision=precision,
         prepared=prepared,
         device=dev,
+        devices=devices,
     )
     if dev.type == "cuda" and not isinstance(all_topics, torch.Tensor):
         # a stack fitted run by run comes back as numpy: the combine stage
@@ -594,7 +691,9 @@ class EnsembleTopics(TopicModelBase):
     a CUDA device that is missing raises, nothing falls back to the CPU).
     ``precision="fast"`` runs the bootstrap fits and the refit through the
     bf16-responsibilities kernels. ``backend="sparse"`` runs them, and
-    ``transform``, on the O(nnz) sparse layout. Fitted attributes: ``components_``
+    ``transform``, on the O(nnz) sparse layout. ``parallelism="sharded"`` (or
+    ``"auto"`` with several devices) splits the runs over :meth:`_devices`.
+    Fitted attributes: ``components_``
     (n_components_, n_words), ``embedding_``, ``training_data_`` and
     ``n_components_``, the number of stable topics found (may differ from
     ``n_components``).
@@ -659,7 +758,8 @@ class EnsembleTopics(TopicModelBase):
                 "ensemble has no weighted path); weight the individual PLSA fits "
                 "instead"
             )
-        if not isinstance(X, (PreparedCounts, PreparedSell)):
+        prepared = isinstance(X, (PreparedCounts, PreparedSell))
+        if not prepared:
             X = check_counts(X)
             if np.any(X.data < 0):
                 raise ValueError(
@@ -691,12 +791,20 @@ class EnsembleTopics(TopicModelBase):
             x_dtype=self.x_dtype,
             precision=self.precision,
             device=self.device,
+            devices=None if prepared else self._devices(),
         )
         self.components_ = V
         self.embedding_ = U
-        self.training_data_ = None if isinstance(X, (PreparedCounts, PreparedSell)) else X
+        self.training_data_ = None if prepared else X
         self.n_components_ = self.components_.shape[0]
         return U
+
+    def _devices(self):
+        """The devices the ``"sharded"`` fan-out lays its runs over, and that
+        ``"auto"`` counts: :func:`~enstop_torch.parallel.mesh.local_devices`
+        of ``device`` (a prepared corpus uses every card of its own device). A
+        subclass may return one device several times."""
+        return mesh_lib.local_devices(self.device)
 
     def transform(self, X, y=None):
         """Embed new documents against the stable topics (a refit of

@@ -21,7 +21,8 @@ def test_import_leaves_jax_and_sklearn_out():
         "import enstop_torch.ops.cuda_batch, enstop_torch.ops.nmf, enstop_torch.ops.metrics\n"
         "import enstop_torch.models.streamed, enstop_torch.models.streamed_core\n"
         "import enstop_torch.models.accelerated, enstop_torch.profiling\n"
-        "import enstop_torch.datasets\n"
+        "import enstop_torch.datasets, enstop_torch.models.mesh\n"
+        "import enstop_torch.parallel.mesh, enstop_torch.parallel.sparse_mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'enstop_tpu', 'sklearn'))\n"
         "print(bad)\n"
@@ -46,12 +47,9 @@ def test_exports():
                  "PreparedCounts", "prepare_counts", "PreparedSell", "prepare_sell",
                  "plsa_fit", "plsa_refit", "normalize", "standardize_input", "LAUNCHES",
                  "StreamedPLSA", "GPUPLSA", "TPUPLSA", "coherence", "log_lift",
-                 "mean_coherence", "mean_log_lift"):
+                 "mean_coherence", "mean_log_lift", "BlockParallelPLSA", "DistributedPLSA"):
         assert hasattr(enstop_torch, name)
         assert name in enstop_torch.__all__
-    # the mesh estimators wait for their slice
-    for name in ("BlockParallelPLSA", "DistributedPLSA"):
-        assert not hasattr(enstop_torch, name)
     assert set(enstop_torch.LAUNCHES) == {
         "em", "refit", "ll", "em_bf16r", "refit_bf16r",
         "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",

@@ -587,3 +587,55 @@ def test_nmf_on_cuda_matches_cpu(cuda):
                                         random_state=0).fit(X)
     assert model.n_components_ >= 2 and np.all(np.isfinite(model.embedding_))
     np.testing.assert_allclose(model.components_.sum(1), 1.0, rtol=1e-5)
+
+
+def test_mesh_tiles_on_one_card(cuda):
+    """A 2 x 2 mesh of four tiles on one card (kernels #1, #8 and the refit's
+    #2 on each tile) against the same steps on the CPU's plain ops (rtol 1e-4
+    on the factors, 1e-5 on the LL); a 1 x 1 mesh fit is ``PLSA``'s bit for
+    bit, and a ``BlockParallelPLSA`` of four tiles repeats bit for bit."""
+    import scipy.sparse as sp
+
+    from enstop_torch.ops.data import pad_factors
+    from enstop_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(3)
+    n, m, k = 203, 650, 20
+    X = sp.csr_matrix((rng.random((n, m)) < 0.03) * rng.integers(1, 6, (n, m)))
+    zd0, wz0 = rng.random((n, k)) + 0.01, rng.random((k, m)) + 0.01
+    zd0, wz0 = zd0 / zd0.sum(1, keepdims=True), wz0 / wz0.sum(1, keepdims=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = mesh_lib.make_mesh(2, 2, devices=[dev] * 4)
+        tiles, _, _ = mesh_lib.stage_sharded_counts(mesh, X)
+        n_pad, m_pad = 2 * tiles[0][0].n, 2 * tiles[0][0].m
+        zd, wz = pad_factors(zd0, wz0, n_pad, m_pad)
+        w = rng.uniform(0.5, 1.5, n_pad).astype(np.float32) if dev == cuda else out["w"]
+        before = dict(cuda_em.LAUNCHES)
+        zds, wzs, ws = mesh_lib.shard_factors(mesh, zd, wz, w)
+        next_zd, next_wz, ll = mesh_lib.build_sharded_em_step(mesh)(tiles, zds, wzs, ws)
+        refit_zd, refit_ll = mesh_lib.build_sharded_refit_step(mesh)(tiles, zds, wzs)
+        out.update(w=w, **{str(dev.type): (
+            mesh_lib.gather_rows(mesh, next_zd), mesh_lib.gather_cols(next_wz), float(ll),
+            mesh_lib.gather_rows(mesh, refit_zd), float(refit_ll))})
+        launched = {key: cuda_em.LAUNCHES[key] - before[key] for key in before}
+        if dev == cuda:
+            assert launched["em"] == launched["word_pass"] == launched["refit"] == 4
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4 if np.ndim(want) else 1e-5,
+                                   atol=1e-4 * float(np.abs(want).max()) if np.ndim(want) else 0)
+
+    one = enstop_torch.BlockParallelPLSA(n_components=k, init=(zd0, wz0), n_iter=30).fit(X)
+    flat = enstop_torch.PLSA(n_components=k, init=(zd0, wz0), n_iter=30).fit(X)
+    for name in ("components_", "embedding_", "history_"):
+        np.testing.assert_array_equal(getattr(one, name), getattr(flat, name))
+
+    class FourTiles(enstop_torch.BlockParallelPLSA):
+        def _devices(self):
+            return [cuda] * 4
+
+    a, b = (FourTiles(n_components=k, init=(zd0, wz0), n_row_blocks=2, n_col_blocks=2,
+                      n_iter=30).fit(X) for _ in range(2))
+    np.testing.assert_array_equal(a.components_, b.components_)
+    np.testing.assert_array_equal(a.history_, b.history_)
+    np.testing.assert_allclose(a.history_, flat.history_, rtol=1e-5)
