@@ -51,7 +51,24 @@ launch counts set to 0 just before it and read just after:
     20NG, within 1e-5 of phase 10's; (e) ``EnsembleTopics(parallelism=
     "sharded")`` at 20NG, 16 runs over 4 runs-shards, its topic stack bit for
     bit that of the same runs on 1 runs-shard. Each path's wall, EM-loop time
-    and peak device memory is printed beside its single-device counterpart's.
+    and peak device memory is printed beside its single-device counterpart's;
+13. the reference-compatible modules at 20NG, k = 20 (phase 16): (a)
+    ``plsa.plsa_fit_inner`` from phase 3's init, 100 iterations, tolerance 0,
+    every step on the thresholded word and doc passes (the reference's
+    ``e_step_thresh`` 1e-32), held against the same schedule on the plain COO
+    steps of ``ops/coo.py`` on the card (the ``(nnz, k)`` responsibilities
+    materialised): final LL within 1e-5 relative, the same step count, both
+    walls; (b) ``plsa.plsa_refit_inner`` on 2,000 documents against phase 3's
+    topics, exactly ``n_iter`` thresholded doc passes, against the plain COO
+    refit; (c) ``cuda_plsa.plsa_fit``, ``block_parallel_plsa.plsa_fit`` and
+    ``distributed_plsa.plsa_fit`` at their defaults, bit for bit one another;
+    (d) ``streamed_plsa.plsa_fit(block_size=4096)``, its LL within 1e-5 of the
+    resident sparse fit's from the same seed; (e)
+    ``enstop_.generate_combined_topics_hellinger_umap`` on phase 7's topic
+    stack as numpy (the default ``device`` takes it to the card) and as the
+    CUDA tensor: the Hellinger matrix, the UMAP layout (on the card) and the
+    clusters bit for bit, the stable topics within 1e-5 (a numpy stack is
+    merged on the host).
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -150,6 +167,9 @@ NMF_ENSEMBLE = dict(n_components=20, n_starts=16, random_state=0)
 MESH = dict(n_components=20, n_iter=100, n_iter_per_test=10, tolerance=0, random_state=0,
             device="cuda")                   # phase 15, as phase 3's PLSA
 MESH_LL_RTOL = 1e-5  # a mesh fit's final LL against its single-device counterpart's
+INNER = dict(n_iter=100, n_iter_per_test=10, tolerance=0.0)  # phase 16 (a)
+COMPAT_LL_RTOL = 1e-5  # phase 16: the inner loop against the plain steps, streamed vs resident
+STREAM_DOCS_16 = 4096  # phase 16 (d)'s block_size
 
 
 def check(ok, what):
@@ -896,6 +916,219 @@ def mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model, wa
     return worst
 
 
+def coo_inner_loop(coo, zd, wz, w, n_iter, n_iter_per_test, tolerance, refit=False,
+                   thresh=1e-32):
+    """The reference's inner loop (``plsa_fit_inner``, or with ``refit``
+    ``plsa_refit_inner``, whose gate never passes) on the plain COO steps of
+    ``ops/coo.py`` on the card, the ``(nnz, k)`` responsibilities
+    materialised. Returns ``(zd, wz, tested LLs, steps)``."""
+    from enstop_torch.ops import coo as coo_ops
+
+    rows, cols, vals = coo
+    n, m = zd.shape[0], wz.shape[1]
+    lls = [float(coo_ops.log_likelihood_coo(rows, cols, vals, zd, wz, w))]
+    steps = 0
+    for i in range(n_iter):
+        resp = coo_ops.e_step_coo(rows, cols, vals, zd, wz, thresh)
+        zd, new_wz = coo_ops.m_step_coo(rows, cols, vals, resp, n, m)
+        wz = wz if refit else new_wz
+        steps += 1
+        if i % n_iter_per_test == 0:
+            lls.append(float(coo_ops.log_likelihood_coo(rows, cols, vals, zd, wz, w)))
+            change = abs(lls[-1] - lls[-2])
+            if not refit and (change == 0 or change / abs(lls[-1]) < tolerance):
+                break
+    return zd, wz, lls, steps
+
+
+def sides_wall(host_coo, n, m, word=True):
+    """Seconds ``plsa_fit_inner`` (``word``) or ``plsa_refit_inner`` spends
+    shipping the caller's COO and building its sides, to a synchronise."""
+    from enstop_torch import plsa
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plsa._sides(*host_coo, n, m, torch.device("cuda"), word=word)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def compat_phase(X, docs, model, sprep, default_stack, cuda_em, em, totals):
+    """Phase 16 at 20NG, k = 20: the reference-compatible modules."""
+    from enstop_torch import (block_parallel_plsa, cuda_plsa, distributed_plsa, enstop_, plsa,
+                              streamed_plsa)
+    from enstop_torch.models import ensemble as ens
+    from enstop_torch.ops import sell
+    from enstop_torch.ops.init import plsa_init
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    k = 20
+    coo = X.tocoo()
+    host_coo = (coo.row, coo.col, coo.data.astype(np.float32))
+    dev_coo = (torch.from_numpy(coo.row.astype(np.int64)).to(dev),
+               torch.from_numpy(coo.col.astype(np.int64)).to(dev),
+               torch.from_numpy(coo.data.astype(np.float32)).to(dev))
+    w = np.ones(X.shape[0], np.float32)
+    zd0, wz0 = plsa_init(X, k, rng=np.random.RandomState(0))  # phase 3's init
+
+    tested, real_ll = [], plsa.log_likelihood_sell
+
+    def tested_ll(*args):
+        ll = real_ll(*args)
+        tested.append(float(ll))
+        return ll
+
+    # (a) plsa_fit_inner on the thresholded passes, then the plain COO steps
+    plsa.log_likelihood_sell = tested_ll
+    try:
+        reset_counts(cuda_em, em)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zd_a, wz_a = plsa.plsa_fit_inner(*host_coo, wz0.copy(), zd0.copy(), w, **INNER)
+        inner_s = time.perf_counter() - t0
+        launches = read_counts("(a) plsa_fit_inner", ("word_pass_thresh", "doc_pass_thresh",
+                                                      "doc_pass"), cuda_em, em, totals)
+        lls_a = list(tested)
+        t0 = time.perf_counter()
+        again = plsa.plsa_fit_inner(*host_coo, wz0.copy(), zd0.copy(), w, **INNER)
+        warm_s = time.perf_counter() - t0
+    finally:
+        plsa.log_likelihood_sell = real_ll
+    sides_s = sides_wall(host_coo, *X.shape)
+    steps = launches["word_pass_thresh"]
+    check(steps == launches["doc_pass_thresh"] == INNER["n_iter"]
+          and launches["doc_pass"] == len(lls_a) == 11 and launches["word_pass"] == 0,
+          "every step of plsa_fit_inner ran the thresholded passes, the 11 LL tests the doc "
+          "pass")
+    check(np.array_equal(again[0], zd_a) and np.array_equal(again[1], wz_a),
+          "repeat plsa_fit_inner runs are bit for bit the same")
+    w_dev = torch.ones(X.shape[0], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zd_p, wz_p, lls_p, steps_p = coo_inner_loop(
+        dev_coo, torch.from_numpy(zd0).to(dev), torch.from_numpy(wz0).to(dev), w_dev,
+        INNER["n_iter"], INNER["n_iter_per_test"], INNER["tolerance"])
+    plain_s = time.perf_counter() - t0
+    gap = abs(lls_a[-1] - lls_p[-1]) / abs(lls_p[-1])
+    factor_gap = float(np.abs(wz_a - wz_p.cpu().numpy()).max())
+    print(f"phase 16 (a) plsa_fit_inner at 20NG ({X.nnz} nonzeros), {steps} steps on the "
+          f"thresholded passes: {inner_s * 1e3:.2f} ms wall (again {warm_s * 1e3:.2f} ms, of "
+          f"which {sides_s * 1e3:.2f} ms ship the COO and build the two sides), "
+          f"the same loop on the plain COO steps on the card {plain_s * 1e3:.2f} ms "
+          f"({steps_p} steps), {plain_s / warm_s:.2f} times the warm wall; final LL "
+          f"{lls_a[-1]:.6f} plain {lls_p[-1]:.6f} rel gap {gap:.3e}; topics max abs gap "
+          f"{factor_gap:.3e}; tested LLs {lls_a}")
+    check(steps_p == steps and len(lls_p) == len(lls_a) and gap <= COMPAT_LL_RTOL,
+          "plsa_fit_inner agrees with the plain COO loop")
+    check_distributions(wz_a, "plsa_fit_inner topics")
+
+    # (b) plsa_refit_inner: exactly n_iter thresholded doc passes
+    dcoo = docs.tocoo()
+    r0 = np.random.RandomState(model.transform_random_seed).rand(docs.shape[0], k)
+    r0 = (r0 / r0.sum(axis=1, keepdims=True)).astype(np.float32)
+    d_host = (dcoo.row, dcoo.col, dcoo.data.astype(np.float32))
+    w_docs = np.ones(docs.shape[0], np.float32)
+    reset_counts(cuda_em, em)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = plsa.plsa_refit_inner(*d_host, model.components_, r0.copy(), w_docs)
+    refit_s = time.perf_counter() - t0
+    launches = read_counts("(b) plsa_refit_inner", ("doc_pass_thresh",), cuda_em, em, totals)
+    t0 = time.perf_counter()
+    emb_again = plsa.plsa_refit_inner(*d_host, model.components_, r0.copy(), w_docs)
+    refit_warm_s = time.perf_counter() - t0
+    check(np.array_equal(emb, emb_again), "repeat plsa_refit_inner runs are bit for bit the same")
+    d_sides_s = sides_wall(d_host, *docs.shape, word=False)
+    d_coo = tuple(torch.from_numpy(a).to(dev) for a in (
+        dcoo.row.astype(np.int64), dcoo.col.astype(np.int64), dcoo.data.astype(np.float32)))
+    emb_p = coo_inner_loop(d_coo, torch.from_numpy(r0).to(dev),
+                           torch.from_numpy(model.components_).to(dev),
+                           torch.ones(docs.shape[0], device=dev), 50, 10, 0.005, refit=True)[0]
+    embed_err = float(np.abs(emb - emb_p.cpu().numpy()).max())
+    print(f"phase 16 (b) plsa_refit_inner on {docs.shape[0]} docs: {refit_s * 1e3:.2f} ms wall "
+          f"(again {refit_warm_s * 1e3:.2f} ms, of which {d_sides_s * 1e3:.2f} ms build the doc "
+          f"side), "
+          f"{launches['doc_pass_thresh']} thresholded doc passes, {launches['doc_pass']} LL "
+          f"tests; max abs err vs the plain COO refit {embed_err:.3e}")
+    check(launches["doc_pass_thresh"] == 50 and launches["word_pass_thresh"] == 0,
+          "plsa_refit_inner ran exactly n_iter = 50 thresholded doc passes")
+    check(embed_err <= EMBED_ATOL, "plsa_refit_inner agrees with the plain COO refit")
+    check_distributions(emb[np.asarray(docs.sum(1)).ravel() > 0], "plsa_refit_inner rows")
+
+    # (c) the three dense functional fits at their defaults: one fit on one card
+    fits, fit_walls = [], []
+    for mod in (cuda_plsa, block_parallel_plsa, distributed_plsa):
+        reset_counts(cuda_em, em)
+        t0 = time.perf_counter()
+        fits.append(mod.plsa_fit(X, k, random_state=0))
+        fit_walls.append(time.perf_counter() - t0)
+        read_counts(f"(c) {mod.__name__.split('.')[-1]}.plsa_fit", ("em", "word_pass"), cuda_em,
+                    em, totals)
+    same = all(np.array_equal(a, b) for f in fits[1:] for a, b in zip(f, fits[0]))
+    print(f"phase 16 (c) cuda_plsa / block_parallel_plsa / distributed_plsa.plsa_fit at their "
+          f"defaults: {' / '.join(f'{s:.3f}' for s in fit_walls)} s wall; factors "
+          f"{'bit for bit the same' if same else 'DIFFER'}")
+    check(same, "the three dense functional fits are one fit on one card")
+    check_distributions(fits[0][1], "functional fit topics")
+
+    # (d) the streamed functional fit against the resident sparse fit
+    reset_counts(cuda_em, em)
+    t0 = time.perf_counter()
+    zd_s, wz_s = streamed_plsa.plsa_fit(X, k, block_size=STREAM_DOCS_16, random_state=0)
+    stream_s = time.perf_counter() - t0
+    read_counts("(d) streamed_plsa.plsa_fit", ("word_pass", "doc_pass"), cuda_em, em, totals)
+    zd_r, wz_r = plsa.plsa_fit(X, k, random_state=0, backend="sparse")
+    ll_s, ll_r = (float(sell.log_likelihood_sell(sprep, torch.from_numpy(a).to(dev),
+                                                 torch.from_numpy(b).to(dev)))
+                  for a, b in ((zd_s, wz_s), (zd_r, wz_r)))
+    gap = abs(ll_s - ll_r) / abs(ll_r)
+    print(f"phase 16 (d) streamed_plsa.plsa_fit(block_size={STREAM_DOCS_16}): "
+          f"{-(-X.shape[0] // STREAM_DOCS_16)} blocks, {stream_s:.3f} s wall; LL {ll_s:.6f} "
+          f"vs the resident sparse fit {ll_r:.6f}, rel gap {gap:.3e}; topics max abs gap "
+          f"{float(np.abs(wz_s - wz_r).max()):.3e}")
+    check(gap <= COMPAT_LL_RTOL, "the streamed functional fit agrees with the resident one")
+
+    # (e) the public combiner on the numpy stack: on the card by default
+    seen = {}
+    embed, merge = ens.umap_embed, ens._merge_topics_by_label
+
+    def keep_layout(**kwargs):
+        seen.setdefault("umap", []).append((kwargs, embed(**kwargs)))
+        return seen["umap"][-1][1]
+
+    def keep_merge(all_topics, labels, weights=None):
+        seen.setdefault("merge", []).append((labels, weights))
+        return merge(all_topics, labels, weights)
+
+    ens.umap_embed, ens._merge_topics_by_label = keep_layout, keep_merge
+    try:
+        kw = dict(min_samples=3, min_cluster_size=5, random_state=0)  # EnsembleTopics'
+        t0 = time.perf_counter()
+        from_numpy = enstop_.generate_combined_topics_hellinger_umap(
+            default_stack.cpu().numpy(), **kw)
+        numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from_tensor = enstop_.generate_combined_topics_hellinger_umap(default_stack, **kw)
+        tensor_s = time.perf_counter() - t0
+    finally:
+        ens.umap_embed, ens._merge_topics_by_label = embed, merge
+    (kw_n, emb_n), (kw_t, emb_t) = seen["umap"]
+    (labels_n, weights_n), (labels_t, weights_t) = seen["merge"]
+    same = (np.array_equal(kw_n["dmat"], kw_t["dmat"]) and np.array_equal(emb_n, emb_t)
+            and np.array_equal(labels_n, labels_t) and np.array_equal(weights_n, weights_t))
+    merge_err = rel_err(torch.from_numpy(from_numpy), torch.from_numpy(from_tensor))
+    print(f"phase 16 (e) generate_combined_topics_hellinger_umap on phase 7's stack "
+          f"{tuple(default_stack.shape)}: numpy {numpy_s:.3f} s (layout on "
+          f"{kw_n['device']}), CUDA tensor {tensor_s:.3f} s; Hellinger matrix, layout and "
+          f"clusters {'bit for bit the same' if same else 'DIFFER'}; {from_numpy.shape[0]} "
+          f"stable topics, host merge vs device merge rel err {merge_err:.3e}")
+    check(torch.device(kw_n["device"]).type == "cuda", "the numpy stack was combined on the card")
+    check(same, "the numpy stack and the tensor give the same matrix, layout and clusters")
+    check(merge_err <= MERGE_RTOL, "the host merge agrees with the device merge")
+    print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1264,6 +1497,8 @@ def main():
             check_distributions(ens_docs, f"{precision} ensemble transform rows")
             if precision == "fast":
                 first_fast = (stack.clone(), ensemble.n_components_, ensemble.components_)
+            else:
+                default_stack = stack.clone()  # for phase 16 (e)
 
         # -- phase 8: determinism -------------------------------------------
         for precision in ("default", "fast"):
@@ -1521,6 +1756,7 @@ def main():
     for name, err in mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model,
                                 walls, cuda_em, em, cuda_sparse, totals).items():
         worst[name] = max(worst[name], err)
+    compat_phase(X, docs, model, sprep, default_stack, cuda_em, em, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

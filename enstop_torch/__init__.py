@@ -11,7 +11,15 @@ CPU (``device="cpu"``), on a padded dense corpus (``prepare_counts``) or the
 O(nnz) sparse layout (``backend="sparse"``, ``prepare_sell``); and the topic
 metrics (``coherence``, ``log_lift`` and their means). The package imports
 torch, numpy and scipy only.
+
+The reference's module paths are here too: ``enstop_torch.plsa`` (its
+functional kernel API and EM loops, ``plsa_fit_inner``), ``cuda_plsa``,
+``block_parallel_plsa``, ``distributed_plsa``, ``streamed_plsa`` and
+``enstop_``, each at the JAX package's signatures with a trailing
+``device``.
 """
+
+__version__ = "0.2.0"
 
 from .models.accelerated import GPUPLSA, TPUPLSA
 from .models.ensemble import EnsembleTopics, ensemble_fit, ensemble_of_topics

@@ -13,6 +13,11 @@ The inputs are small (``n_runs * k`` topic rows), so the products are plain
 ``torch.matmul`` on the stack's device, in full float32 with TF32 off: the
 matrices feed HDBSCAN, whose dendrogram is sensitive to last-ulp ties (the JAX
 package uses ``Precision.HIGHEST`` for the same reason).
+
+A tensor stack is used on its own device. Any other stack (numpy, a list)
+goes to ``device``: the card by default, as JAX puts such input on its
+default device; a CUDA device that is missing raises, nothing falls back to
+the CPU. ``device="cpu"`` asks for the host.
 """
 
 from __future__ import annotations
@@ -22,8 +27,10 @@ import contextlib
 import numpy as np
 import torch
 
+from ..ops.data import resolve_device
+
 __all__ = ["all_pairs_hellinger_distance", "all_pairs_kl_divergence",
-           "hellinger", "kl_divergence", "full_fp32_matmul"]
+           "hellinger", "kl_divergence", "full_fp32_matmul", "stack_device"]
 
 
 @contextlib.contextmanager
@@ -59,12 +66,21 @@ def hellinger(a, b):
     return float(np.sqrt(max(0.0, 1.0 - sim / np.sqrt(l1a * l1b))))
 
 
-def _as_f32(distributions):
+def stack_device(distributions, device=None):
+    """The device a topic stack is used on: a tensor's own, else ``device``
+    (``"cuda"`` when None)."""
+    if isinstance(distributions, torch.Tensor):
+        return distributions.device
+    return resolve_device("cuda" if device is None else device)
+
+
+def _as_f32(distributions, device=None):
     # a tensor stays on its device: the ensemble fan-out hands over the topic
     # stack where it was fitted
     if isinstance(distributions, torch.Tensor):
         return distributions.float()
-    return torch.from_numpy(np.asarray(distributions, dtype=np.float32))
+    dev = stack_device(distributions, device)
+    return torch.from_numpy(np.asarray(distributions, dtype=np.float32)).to(dev)
 
 
 def _to_host(d):
@@ -87,9 +103,9 @@ def _hellinger_matrix(T):
     return torch.where(both_zero, 0.0, torch.where(one_zero, 1.0, d))
 
 
-def all_pairs_hellinger_distance(distributions):
+def all_pairs_hellinger_distance(distributions, device=None):
     """Pairwise Hellinger distances as float64 numpy, zero diagonal."""
-    return _to_host(_hellinger_matrix(_as_f32(distributions)))
+    return _to_host(_hellinger_matrix(_as_f32(distributions, device)))
 
 
 def _kl_matrix(T):
@@ -104,6 +120,6 @@ def _kl_matrix(T):
     return self_cross - cross
 
 
-def all_pairs_kl_divergence(distributions):
+def all_pairs_kl_divergence(distributions, device=None):
     """Pairwise KL divergences in bits as float64 numpy, zero diagonal."""
-    return _to_host(_kl_matrix(_as_f32(distributions)))
+    return _to_host(_kl_matrix(_as_f32(distributions, device)))

@@ -286,7 +286,7 @@ def umap_embed(
         elif metric in (None, "hellinger"):
             from .distances import all_pairs_hellinger_distance
 
-            dmat = all_pairs_hellinger_distance(X)
+            dmat = all_pairs_hellinger_distance(X, device)
         elif metric == "euclidean":
             X = np.asarray(X, dtype=np.float64)
             diff = X[:, None, :] - X[None, :, :]

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..cluster.distances import (all_pairs_hellinger_distance, all_pairs_kl_divergence,
-                                 full_fp32_matmul)
+                                 full_fp32_matmul, stack_device)
 from ..cluster.hdbscan import (HDBSCAN, compute_stability, condense_tree,
                                labels_and_probabilities, mst_linkage, select_clusters,
                                single_linkage_tree)
@@ -458,10 +458,12 @@ def _merge_topics_by_label(all_topics, labels, weights=None):
     return result
 
 
-def generate_combined_topics_kl(all_topics, min_samples=5, min_cluster_size=5):
+def generate_combined_topics_kl(all_topics, min_samples=5, min_cluster_size=5, device=None):
     """KL-divergence combiner: hand-built mutual reachability over the
-    (asymmetric) divergence matrix, MST, leaf selection."""
-    divergence_matrix = all_pairs_kl_divergence(all_topics)
+    (asymmetric) divergence matrix, MST, leaf selection. ``device``: where a
+    stack that is not a tensor is used (the card by default; a tensor stays on
+    its own device), as for the distances."""
+    divergence_matrix = all_pairs_kl_divergence(all_topics, device)
     core = np.sort(divergence_matrix, axis=1)[:, min_samples]
     tiled = np.tile(core, (core.shape[0], 1))
     mutual_reach = np.dstack(
@@ -478,14 +480,16 @@ def generate_combined_topics_kl(all_topics, min_samples=5, min_cluster_size=5):
     return _merge_topics_by_label(all_topics, labels)
 
 
-def generate_combined_topics_hellinger(all_topics, min_samples=5, min_cluster_size=5):
-    """Hellinger combiner: precomputed-metric HDBSCAN, leaf selection."""
+def generate_combined_topics_hellinger(all_topics, min_samples=5, min_cluster_size=5,
+                                       device=None):
+    """Hellinger combiner: precomputed-metric HDBSCAN, leaf selection;
+    ``device`` as for :func:`generate_combined_topics_kl`."""
     labels = HDBSCAN(
         min_samples=min_samples,
         min_cluster_size=min_cluster_size,
         metric="precomputed",
         cluster_selection_method="leaf",
-    ).fit_predict(all_pairs_hellinger_distance(all_topics))
+    ).fit_predict(all_pairs_hellinger_distance(all_topics, device))
     if labels.max() < 0:
         labels = np.zeros(all_topics.shape[0], dtype=np.intp)
     return _merge_topics_by_label(all_topics, labels)
@@ -493,15 +497,15 @@ def generate_combined_topics_hellinger(all_topics, min_samples=5, min_cluster_si
 
 def generate_combined_topics_hellinger_umap(
     all_topics, min_samples=5, min_cluster_size=5, n_neighbors=15, reduced_dim=5,
-    random_state=None,
+    random_state=None, device=None,
 ):
     """Default combiner: 5-D UMAP embedding under Hellinger distance (its
     layout on the stack's device), then euclidean HDBSCAN with leaf selection
     and ``allow_single_cluster``; clusters merged with membership-strength
-    weights."""
-    device = all_topics.device if isinstance(all_topics, torch.Tensor) else "cpu"
+    weights. ``device`` as for :func:`generate_combined_topics_kl`."""
+    device = stack_device(all_topics, device)
     embedding = umap_embed(
-        dmat=all_pairs_hellinger_distance(all_topics),
+        dmat=all_pairs_hellinger_distance(all_topics, device),
         n_components=reduced_dim,
         n_neighbors=n_neighbors,
         random_state=random_state,
@@ -652,9 +656,9 @@ def ensemble_fit(
     cluster_topics = _topic_combiner[topic_combination]
     if topic_combination == "hellinger_umap":
         stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
-                                       random_state=random_state)
+                                       random_state=random_state, device=dev)
     else:
-        stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size)
+        stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size, device=dev)
     timings["combine_s"] = time.perf_counter() - t0
 
     if lift_factor != 1:

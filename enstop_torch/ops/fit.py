@@ -78,6 +78,12 @@ def em_fit_loop(em_step, ll_fn, state0, n_iter, n_iter_per_test, tolerance):
     return FitResult(state, done, float(rec.prev), rec.trace, rec.t)
 
 
+def em_fit_loop_traced(em_step, ll_fn, state0, n_iter, n_iter_per_test, tolerance):
+    """:func:`em_fit_loop` returning ``(state, n_steps, ll_trace, n_tests)``."""
+    res = em_fit_loop(em_step, ll_fn, state0, n_iter, n_iter_per_test, tolerance)
+    return res.state, res.n_steps, res.ll_trace, res.n_tests
+
+
 def em_fit_loop_folded(em_step_ll, em_step, ll_fn, state0, n_iter,
                        n_iter_per_test, tolerance):
     """:func:`em_fit_loop` with the test log-likelihood folded into the EM

@@ -58,8 +58,9 @@ _TINY = 1e-30
 
 __all__ = ["Mesh", "local_devices", "process_ranks", "largest_divisor", "make_mesh",
            "make_runs_mesh", "mesh_layout_multiples", "psum", "stage_sharded_counts",
-           "shard_factors", "gather_rows", "gather_cols", "build_sharded_em_step",
-           "build_sharded_ll", "build_sharded_refit_step", "build_sharded_fit",
+           "shard_factors", "shard_inputs", "gather_rows", "gather_cols",
+           "build_sharded_em_step", "build_sharded_ll", "build_sharded_refit_step",
+           "build_sharded_fit",
            "build_ensemble_runs_sharded"]
 
 
@@ -228,6 +229,22 @@ def shard_factors(mesh, zd, wz, w):
     return ([put(zd[r], mesh.devices[i, 0]) for i, r in enumerate(rows)],
             [put(wz[:, j * tc:(j + 1) * tc], dev) for j, dev in enumerate(mesh.devices[0])],
             [put(w[r], mesh.devices[i, 0]) for i, r in enumerate(rows)])
+
+
+def shard_inputs(mesh, X, zd, wz, w):
+    """Padded host inputs placed on the mesh: ``(tiles, zd, wz, w)``, the
+    tiles of the (n_pad, m_pad) count matrix ``X`` as
+    :func:`stage_sharded_counts` stages them and the factor blocks of
+    :func:`shard_factors`. ``X`` must be padded to the mesh's multiples
+    (:func:`mesh_layout_multiples`) and the factors to ``X``'s shape."""
+    n_pad, m_pad = X.shape
+    rm, cm = mesh_layout_multiples(mesh)
+    if n_pad % rm or m_pad % cm:
+        raise ValueError(f"X {X.shape} is not padded to the mesh's multiples ({rm}, {cm})")
+    if zd.shape[0] != n_pad or wz.shape[1] != m_pad or w.shape != (n_pad,):
+        raise ValueError(f"factors {zd.shape}, {wz.shape} and weights {w.shape} do not match "
+                         f"X {X.shape}")
+    return (stage_sharded_counts(mesh, X)[0],) + shard_factors(mesh, zd, wz, w)
 
 
 def gather_rows(mesh, parts):

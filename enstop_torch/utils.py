@@ -1,5 +1,9 @@
 """Numeric primitives, input standardisation and sample-weight handling
-(counterpart of ``enstop_tpu/utils.py``, written without scikit-learn)."""
+(counterpart of ``enstop_tpu/utils.py``, written without scikit-learn).
+
+The reference keeps the topic metrics in its ``utils``; here they live in
+:mod:`.ops.metrics` and ``from enstop_torch.utils import coherence`` reaches
+them through a lazy re-export (no import cycle)."""
 
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ __all__ = [
     "standardize_input",
     "check_random_state",
     "_check_sample_weight",
+    "arr_intersect",
 ]
+
+_METRICS = ("coherence", "mean_coherence", "log_lift", "mean_log_lift")
 
 
 def normalize(ndarray, axis=0):
@@ -54,6 +61,18 @@ def standardize_input(input_matrix):
     return X / norms[:, np.newaxis]
 
 
+def arr_intersect(ar1, ar2):
+    """The sorted unique values that both arrays hold."""
+    return np.intersect1d(ar1, ar2)
+
+
+def as_scipy_csr(X, dtype=np.float32):
+    """Dense or sparse input as a CSR matrix of ``dtype``."""
+    if sp.issparse(X):
+        return X.tocsr().astype(dtype)
+    return sp.csr_matrix(np.asarray(X, dtype=dtype))
+
+
 def check_random_state(seed):
     """``None`` -> numpy's global RandomState, an int -> a new one seeded with
     it, a RandomState -> itself."""
@@ -91,3 +110,11 @@ def _check_sample_weight(sample_weight, X, dtype=None):
     if not np.all(np.isfinite(sample_weight)):
         raise ValueError("Sample weights contain NaN or infinity")
     return sample_weight
+
+
+def __getattr__(name):
+    if name in _METRICS:
+        from .ops import metrics
+
+        return getattr(metrics, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

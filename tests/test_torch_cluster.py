@@ -79,11 +79,12 @@ def test_distance_matrices_match_jax(as_tensor):
     for port_fn, jax_fn, atol in (
             (port_dist.all_pairs_hellinger_distance, jax_dist.all_pairs_hellinger_distance, 1e-6),
             (port_dist.all_pairs_kl_divergence, jax_dist.all_pairs_kl_divergence, None)):
-        got, want = port_fn(inp), jax_fn(T)
+        # a tensor stays on its device; numpy goes to the card unless told
+        got, want = port_fn(inp, device="cpu"), jax_fn(T)
         assert got.dtype == np.float64 and got.shape == (48, 48)
         assert np.all(np.diag(got) == 0.0)
         np.testing.assert_allclose(got, want, rtol=0, atol=atol or 1e-6 * np.abs(want).max())
-    hell = port_dist.all_pairs_hellinger_distance(inp)
+    hell = port_dist.all_pairs_hellinger_distance(inp, device="cpu")
     assert np.all(hell[3, np.arange(48) != 3] == 1.0)
     for a, b in ((T[0], T[1]), (T[3], T[3]), (T[3], T[5]), (T[7], T[9])):
         assert port_dist.hellinger(a, b) == jax_dist.hellinger(a, b)

@@ -164,8 +164,9 @@ def _combine_both(name, stack, as_tensor, monkeypatch):
     kw = dict(random_state=0) if name == "hellinger_umap" else {}
     port_seen = _capture_merge(port_ens, monkeypatch)
     jax_seen = _capture_merge(jax_ens, monkeypatch)
+    # a numpy stack goes to the card unless the call names the CPU
     got = port_ens._topic_combiner[name](torch.from_numpy(stack) if as_tensor else stack,
-                                         3, 4, **kw)
+                                         3, 4, **kw, **({} if as_tensor else {"device": "cpu"}))
     want = jax_ens._topic_combiner[name](stack, 3, 4, **kw)
     assert got.shape == want.shape and got.shape[0] >= 2
     return (got, *port_seen[0]), (want, *jax_seen[0])
@@ -179,7 +180,7 @@ def test_combiners_match_jax_on_the_same_stack(jax_stacks, monkeypatch, name, as
         # the same distance matrix on both sides (the matrices themselves are
         # held together in test_torch_cluster.py)
         monkeypatch.setattr(jax_ens, "all_pairs_hellinger_distance",
-                            port_ens.all_pairs_hellinger_distance)
+                            lambda d: port_ens.all_pairs_hellinger_distance(d, device="cpu"))
     (got, pl, pw), (want, jl, jw) = _combine_both(name, stack, as_tensor, monkeypatch)
     np.testing.assert_array_equal(pl, jl)
     if pw is not None or jw is not None:

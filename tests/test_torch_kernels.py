@@ -639,3 +639,55 @@ def test_mesh_tiles_on_one_card(cuda):
     np.testing.assert_array_equal(a.components_, b.components_)
     np.testing.assert_array_equal(a.history_, b.history_)
     np.testing.assert_allclose(a.history_, flat.history_, rtol=1e-5)
+
+
+def test_reference_inner_loops_on_the_thresholded_passes(cuda, monkeypatch):
+    """``plsa_fit_inner`` and ``plsa_refit_inner`` on the card run every step
+    on the thresholded word and doc passes (the reference's 1e-32 fires on
+    products of small probabilities) and agree with the same loops on the
+    plain passes on the card: the tested log-likelihoods to 1e-5 relative, the
+    factors to 1e-4."""
+    import scipy.sparse as sp
+
+    from enstop_torch import plsa as compat
+    from enstop_torch.ops import sell
+
+    rng = np.random.default_rng(5)
+    n, m, k = 203, 650, 20
+    X = sp.coo_matrix((rng.random((n, m)) < 0.03) * rng.integers(1, 6, (n, m)))
+    coo = (X.row, X.col, X.data.astype(np.float32))
+    zd0 = rng.random((n, k)).astype(np.float32) + 0.01
+    wz0 = rng.random((k, m)).astype(np.float32) + 0.01
+    wz0[:, X.col[0]] = 1e-33  # every product of this word's entries falls under 1e-32
+    zd0, wz0 = zd0 / zd0.sum(1, keepdims=True), wz0 / wz0.sum(1, keepdims=True)
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    kw = dict(n_iter=30, n_iter_per_test=10, tolerance=0.0)
+
+    def both(plain):
+        lls, real = [], compat.log_likelihood_sell
+
+        def tested(*args):
+            ll = real(*args)
+            lls.append(float(ll))
+            return ll
+
+        monkeypatch.setattr(compat, "log_likelihood_sell", tested)
+        if plain:
+            monkeypatch.setattr(sell, "word_pass", cuda_sparse.word_pass_plain)
+            monkeypatch.setattr(sell, "doc_pass", cuda_sparse.doc_pass_plain)
+        before = dict(cuda_sparse.LAUNCHES)
+        zd, wz = compat.plsa_fit_inner(*coo, wz0.copy(), zd0.copy(), w, use_sample_weights=True,
+                                       **kw)
+        refit = compat.plsa_refit_inner(*coo, wz, zd0.copy(), w, **kw)
+        monkeypatch.undo()
+        return zd, wz, refit, lls, {key: cuda_sparse.LAUNCHES[key] - before[key]
+                                    for key in before}
+
+    *got, got_ll, launched = both(plain=False)
+    *want, want_ll, _ = both(plain=True)
+    assert launched["word_pass_thresh"] == 30 and launched["doc_pass_thresh"] == 60
+    assert launched["word_pass"] == 0 and launched["doc_pass"] == len(got_ll) == 8
+    np.testing.assert_allclose(got_ll, want_ll, rtol=1e-5)
+    for g, w_ in zip(got, want):
+        _close(torch.from_numpy(g), torch.from_numpy(w_), 1e-4)
+    assert np.all(got[1][:, X.col[0]] == 0)  # the threshold dropped the word
