@@ -6,7 +6,8 @@ Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
 ``em_sparse.cu`` and ``em_batch.cu``, one ``nvcc`` each, started together)
 and checks each kernel (the dense fp32 and bf16-responsibilities modes of
 ``precision="fast"``, the sparse word and doc passes, plain and thresholded,
-the batched row and word passes) against its plain PyTorch version on the
+the batched row and word passes; phase 17: the dense B pass and the word
+pass in the E-step's ratio modes) against its plain PyTorch version on the
 card. Then it drives the main paths, each with the
 launch counts set to 0 just before it and read just after:
 
@@ -68,7 +69,17 @@ launch counts set to 0 just before it and read just after:
     stack as numpy (the default ``device`` takes it to the card) and as the
     CUDA tensor: the Hellinger matrix, the UMAP layout (on the card) and the
     clusters bit for bit, the stable topics within 1e-5 (a numpy stack is
-    merged on the host).
+    merged on the host);
+14. the E-step's ratio modes at 20NG, kp = 24, bf16 X (phase 17;
+    ``cuda_em._em_accumulators_ratio``, the port of the TPU experiment
+    ``scripts/exp_divide_pipeline.py``): in each of the seven modes of
+    ``cuda_em.RATIO_MODES``, B (the dense kernel) and A (the word pass),
+    weighted and not, against the mode's plain version, ``f32div`` and
+    ``bf16r`` bit for bit the shipped fp32 and fast steps; then the
+    experiment's 20-step EM loop in each mode (best of 3 to a host readback,
+    the path whose launches are counted), its LL against the initial one and
+    ``f32div``'s; then each mode's step, B pass and word pass alone (CUDA
+    events), the word pass also at config C.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -110,6 +121,13 @@ within 1e-5 of a float64 reference (a float32 Gram matrix over
 and bit for bit the matrix the ensemble used when recomputed with TF32
 allowed; the device merge within 1e-5 (max-norm relative) of the numpy merge;
 the device layout's trustworthiness at most 0.05 below the host layout's.
+Phase 17: ``f32div``, ``recip_mul``, ``lax_recip``, ``nr1`` and ``nr2`` hold A
+and B to 1e-4, as the fp32 dense modes; ``bf16recip_x32`` and ``bf16r`` A to
+1e-4 and B to 1e-3 and must lie 4 times nearer their plain version than the
+``f32div`` one, as the bf16r modes (the MUFU seed of ``nr1``, ``nr2`` and
+``bf16recip_x32`` can differ from the plain version's correctly rounded one
+at a bf16 rounding boundary); each fp32-accurate mode's LL after the 20-step
+loop lies within 1e-4 relative of ``f32div``'s.
 
 Each kernel's bound is the larger of the bytes it must move (each input read
 once, each output written once) over 3.35 TB/s and its fp32 operations on
@@ -154,6 +172,14 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "batch": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
     "batch_word": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
 }
+# phase 17: the ratio modes built for the divide experiment's step only
+# (cuda_em.RATIO_MODES less "f32div" and "bf16r", which are rows em / em_bf16r)
+EXPERIMENT_RATIOS = ("recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32")
+LOSSY_RATIOS = ("bf16recip_x32", "bf16r")  # held as the bf16r modes are
+KERNELS.update({f"{kind}_{mode}": (source, "scripts/exp_divide_pipeline.py:88")
+                for mode in EXPERIMENT_RATIOS
+                for kind, source in (("em", DENSE_SOURCE), ("word_pass", SPARSE_SOURCE))})
+RATIO_STEPS = 20  # phase 17: the experiment's EM loop, best of 3 after a warm one
 ENSEMBLE = dict(n_components=20, n_starts=16, n_iter=80, random_state=0)
 CONFIG_C = (250_000, 141_000, 19_000_000)    # the JAX package's sparse config C
 CONFIG_C2 = (100_000, 141_000, 6_200_000)    # and its config C'
@@ -434,29 +460,36 @@ def ptxas_instances(report):
     return out
 
 
+def ratio_suffix(ratio):
+    """``""`` for ratio mode 0 (fp32), else ``"_<mode>"`` (``_bf16r`` for 6)."""
+    from enstop_torch.ops.em import RATIO_MODES
+
+    return f"_{RATIO_MODES[int(ratio)]}" if int(ratio) else ""
+
+
 def sparse_instance(mangled):
-    """``"L<L>_TPL<TPL>_V<V>_<pass>[_thresh|_bf16r]"`` for a mangled
+    """``"L<L>_TPL<TPL>_V<V>_<pass>[_thresh|_<ratio mode>]"`` for a mangled
     ``segment_pass`` instance of ``em_sparse.cu``, else None."""
-    m = re.search(r"segment_passILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])EE", mangled)
+    m = re.search(r"segment_passILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)EE", mangled)
     if m is None:
         return None
-    L, tpl, v, word, thresh, bf16r = (int(g) for g in m.groups())
+    L, tpl, v, word, thresh, ratio = (int(g) for g in m.groups())
     return (f"L{L}_TPL{tpl}_V{v}_{'word' if word else 'doc'}" + ("_thresh" if thresh else "")
-            + ("_bf16r" if bf16r else ""))
+            + ratio_suffix(ratio))
 
 
 def row_instance(mangled):
-    """``"<kernel>_<x dtype>_L<L>_TPL<TPL>_V<V>[_B][_LL][_bf16r]"`` for a mangled
-    ``em_accumulate`` or ``batch_rows`` instance (``csrc/row_walk.cuh``), else
-    None."""
+    """``"<kernel>_<x dtype>_L<L>_TPL<TPL>_V<V>[_B][_LL][_<ratio mode>]"`` for a
+    mangled ``em_accumulate`` or ``batch_rows`` instance (``csrc/row_walk.cuh``),
+    else None."""
     m = re.search(r"(em_accumulate|batch_rows)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)E"
-                  r"(?:Lb([01])ELb([01])ELb([01])E)?E", mangled)
+                  r"(?:Lb([01])ELb([01])ELi(\d+)E)?E", mangled)
     if m is None:
         return None
-    kernel, xt, L, tpl, v, with_b, ll, bf16r = m.groups()
+    kernel, xt, L, tpl, v, with_b, ll, ratio = m.groups()
     return (f"{kernel}_{'bf16' if xt != 'f' else 'fp32'}_L{L}_TPL{tpl}_V{v}"
             + ("_B" if with_b != "0" else "") + ("_LL" if ll == "1" else "")
-            + ("_bf16r" if bf16r == "1" else ""))
+            + ratio_suffix(ratio or 0))
 
 
 def batch_problem(X, R, k, seed):
@@ -1129,6 +1162,127 @@ def compat_phase(X, docs, model, sprep, default_stack, cuda_em, em, totals):
     print(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def ratio_key(kind, mode):
+    """The ``LAUNCHES`` key of a ratio mode's ``kind`` ("em" or "word_pass")."""
+    return kind if mode == "f32div" else f"{kind}_{mode}"
+
+
+def ratio_phase(Xd, prep, cprep, totals):
+    """Phase 17 at 20NG, kp = 24, bf16 X: the EM step without the LL in the
+    seven ratio modes of ``cuda_em._em_accumulators_ratio`` (the port of the
+    TPU experiment ``scripts/exp_divide_pipeline.py``). Returns the new rows'
+    ``(largest abs errors, (ms, plain ms), bounds)``."""
+    from enstop_torch.ops import cuda_em, cuda_sparse, em
+
+    t_phase = time.perf_counter()
+    check(cuda_em.RATIO_MODES[1:-1] == EXPERIMENT_RATIOS, "the ratio modes are the experiment's")
+    dev = Xd.device
+    n_pad, m_pad = Xd.shape
+    zd, wz, _ = problem(Xd, 20, False, seed=8)
+    kp = zd.shape[1]
+    wzT, word = wz.t().contiguous(), prep.word
+    w1 = torch.ones(n_pad, device=dev)
+    worst = {ratio_key(kind, mode): 0.0 for mode in EXPERIMENT_RATIOS
+             for kind in ("em", "word_pass")}
+    # (a) each mode's B (dense kernel) and A (word pass) against the mode's plain version
+    for weighted in (False, True):
+        w = problem(Xd, 20, True, seed=9)[2] if weighted else None
+        A32, B32 = em.em_accumulators_ratio(Xd, zd, wz, w, "f32div")
+        for mode in cuda_em.RATIO_MODES:
+            A, B = cuda_em._em_accumulators_ratio(Xd, zd, wz, w, mode, word=word)
+            A0, B0 = (A32, B32) if mode == "f32div" else em.em_accumulators_ratio(Xd, zd, wz, w,
+                                                                                   mode)
+            torch.cuda.synchronize()
+            ea, eb, fa, fb = rel_err(A, A0), rel_err(B, B0), rel_err(A, A32), rel_err(B, B32)
+            print(f"  phase 17 {mode} weighted={weighted}: rel err A {ea:.3e} B {eb:.3e}; from "
+                  f"the f32div plain A {fa:.3e} B {fb:.3e}")
+            lossy = mode in LOSSY_RATIOS
+            check(ea <= A_B_RTOL and eb <= (BF16R_B_RTOL if lossy else A_B_RTOL),
+                  f"phase 17 {mode} kernels against their plain version")
+            check(not lossy or all(far > 0 and far >= BF16R_SEPARATION * near
+                                   for near, far in ((ea, fa), (eb, fb))),
+                  f"phase 17 {mode} kernels round as their plain version does")
+            if mode in ("f32div", "bf16r"):
+                A1, B1, _ = cuda_em.em_accumulators_fused(
+                    Xd, zd, wz, w, compute_ll=False, word=word,
+                    precision="fast" if mode == "bf16r" else "default")
+                check(torch.equal(A, A1) and torch.equal(B, B1),
+                      f"phase 17 {mode} is the shipped step bit for bit")
+            else:
+                worst[ratio_key("em", mode)] = max(worst[ratio_key("em", mode)],
+                                                   abs_err((A, A0), (B, B0)))
+                worst[ratio_key("word_pass", mode)] = max(worst[ratio_key("word_pass", mode)],
+                                                          abs_err((A, A0)))
+            del A, B, A0, B0
+
+    # (b) the path: the experiment's 20-step EM loop in each mode
+    def loop(mode):
+        z, v = zd, wz
+        for _ in range(RATIO_STEPS):
+            a, b = cuda_em._em_accumulators_ratio(Xd, z, v, w1, mode, word=word)
+            v = v * a
+            v = v / v.sum(1, keepdim=True).clamp_min(1e-30)
+            z = z * b
+            z = z / z.sum(1, keepdim=True).clamp_min(1e-30)
+        return z, v
+
+    reset_counts(cuda_em, em)
+    loop_ms, final = {}, {}
+    for mode in cuda_em.RATIO_MODES:
+        final[mode] = loop(mode)
+        float(final[mode][0][0, 0])
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            float(loop(mode)[0][0, 0])  # host readback
+            walls.append(time.perf_counter() - t0)
+        loop_ms[mode] = min(walls) / RATIO_STEPS * 1e3
+    read_counts("phase 17 ratio loops", [ratio_key(kind, mode) for mode in cuda_em.RATIO_MODES
+                                         for kind in ("em", "word_pass")], cuda_em, em, totals)
+    ll0 = float(em.log_likelihood_dense(Xd, zd, wz))
+    lls = {mode: float(em.log_likelihood_dense(Xd, *final[mode])) for mode in final}
+    for mode, (z, v) in final.items():
+        check_distributions(v[:20].cpu().numpy(), f"phase 17 {mode} topics")
+        gap = abs(lls[mode] - lls["f32div"]) / abs(lls["f32div"])
+        print(f"  phase 17 {mode}: {RATIO_STEPS}-step loop {loop_ms[mode]:.4f} ms/iter "
+              f"(speedup_vs_f32div {loop_ms['f32div'] / loop_ms[mode]:.3f}x); LL after it "
+              f"{lls[mode]:.6f} (from {ll0:.6f}), rel gap to f32div's {gap:.3e}")
+        check(lls[mode] > ll0 and (mode in LOSSY_RATIOS or gap <= FIT_LL_RTOL),
+              f"phase 17 {mode}: the loop raises the LL, as f32div's does")
+
+    # (c) each mode's kernels alone, CUDA events, at 20NG and (word pass) config C
+    zd_c, wzT_c, _ = sparse_problem(cprep, 20, False, seed=6)
+    w_c = torch.ones(cprep.n, device=dev)
+    timing, bounds = {}, {}
+    step_bound = dense_bound_ms(Xd, kp, kp * (n_pad + m_pad))
+    b_bound = dense_bound_ms(Xd, kp, kp * n_pad)
+    word_bound = sparse_bound_ms(word, n_pad, m_pad, kp)
+    c_bound = sparse_bound_ms(cprep.word, cprep.n, cprep.m, 20)
+    for mode in cuda_em.RATIO_MODES:
+        step = cuda_ms(lambda: cuda_em._em_accumulators_ratio(Xd, zd, wz, w1, mode, word=word),
+                       50)
+        b_ms = cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w1, True, False, mode), 50)
+        word_ms = cuda_ms(lambda: cuda_sparse._pass(word, zd, wzT, w1, True, None, False, mode),
+                          50)
+        c_ms = cuda_ms(lambda: cuda_sparse._pass(cprep.word, zd_c, wzT_c, w_c, True, None,
+                                                  False, mode), 20)
+        plain = cuda_ms(lambda: em.em_accumulators_ratio(Xd, zd, wz, w1, mode), 5)
+        word_plain = cuda_ms(lambda: cuda_sparse._plain_pass(word, zd, wzT, w1, True, None, False,
+                                                             mode), 5)
+        print(f"  phase 17 {mode} at 20NG (CUDA events): step {step:.4f} ms (bound "
+              f"{step_bound[0]:.4f}), plain {plain:.4f} ms; B pass {b_ms:.4f} ms (bound "
+              f"{b_bound[0]:.4f}); word pass {word_ms:.4f} ms (bound {word_bound[0]:.4f}), plain "
+              f"{word_plain:.4f} ms; word pass at config C {c_ms:.4f} ms (bound "
+              f"{c_bound[0]:.4f})")
+        if mode in EXPERIMENT_RATIOS:
+            timing[ratio_key("em", mode)] = (step, plain)
+            timing[ratio_key("word_pass", mode)] = (word_ms, word_plain)
+            bounds[ratio_key("em", mode)] = step_bound
+            bounds[ratio_key("word_pass", mode)] = word_bound
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return worst, timing, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1177,7 +1331,8 @@ def main():
                 print(f"  em_sparse at kp = {kp}: walk shape L = {L}, TPL = {tpl} "
                       f"({32 // L} entries a warp); registers, spill store bytes by mode "
                       f"{json.dumps(found)}")
-                check(len(found) == 5 and all(spill == 0 for _, spill in found.values()),
+                # word, doc, thresholded, bf16r word, and five ratio modes' word
+                check(len(found) == 10 and all(spill == 0 for _, spill in found.values()),
                       f"the em_sparse instances at kp = {kp} are built and do not spill")
         if name in ("em_dense", "em_batch"):
             instances = {row_instance(key): v for key, v in
@@ -1757,6 +1912,8 @@ def main():
                                 walls, cuda_em, em, cuda_sparse, totals).items():
         worst[name] = max(worst[name], err)
     compat_phase(X, docs, model, sprep, default_stack, cuda_em, em, totals)
+    for table, part in zip((worst, timing, bounds), ratio_phase(Xd, prep, cprep, totals)):
+        table.update(part)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

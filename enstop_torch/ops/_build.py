@@ -24,6 +24,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .em import RATIO_MODES
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
@@ -35,22 +37,26 @@ NVCC_FLAGS = (
 # step ("em"), of the refit ("refit"), its LL sweep ("ll"), their bf16r modes,
 # the sparse passes, plain, thresholded and (word pass only) bf16r, and the
 # batched fit's row pass for B ("batch") and word pass for A ("batch_word", the
-# sparse word pass over a grid of runs)
+# sparse word pass over a grid of runs); then the dense B pass and the word
+# pass in the five ratio modes that only the divide experiment's step runs
+# (cuda_em._em_accumulators_ratio)
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
-            "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0}
+            "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0,
+            **{f"{kind}_{mode}": 0 for mode in RATIO_MODES[1:-1]
+               for kind in ("em", "word_pass")}}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "em_dense": {
-        # x_bf16, bf16_r, with_b, compute_ll, lanes, tpl, warps, stages, window, queue,
+        # x_bf16, ratio, with_b, compute_ll, lanes, tpl, warps, stages, window, queue,
         # X, zd, wzT, w, B, ll_part, n, m, kp, stream
         "enstop_em_dense": (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                             _LL, _LL, _I, _P),
     },
     "em_sparse": {
-        # word, thresholded, compute_ll, bf16_r, lanes, tpl, runs, seg_ptr, seg_owner,
+        # word, thresholded, compute_ll, ratio, lanes, tpl, runs, seg_ptr, seg_owner,
         # owner_seg_ptr, idx, vals, zd, wzT, w, thresh, partial, ll_seg, out, n_seg,
         # n_owner, n_index, kp, stream
         "enstop_em_sparse": (_I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P,

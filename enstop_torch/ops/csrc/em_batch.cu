@@ -45,7 +45,7 @@ using row_walk::Args;
 template <typename XT, int L, int TPL, int V>
 __global__ void __launch_bounds__(row_walk::kMaxWarps * 32) batch_rows(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  row_walk::walk_rows<XT, L, TPL, V, true, false, false>(a, smem);
+  row_walk::walk_rows<XT, L, TPL, V, true, false, row_walk::kF32Div>(a, smem);
 }
 
 template <typename XT, int L, int TPL, int V>

@@ -6,10 +6,17 @@
 //   _make_ll_kernel     (log-likelihood sweep only)                -> COMPUTE_LL only
 // (and the grid-order variants _make_em_kernel_jo / _make_em_kernel_jo_resident /
 // _make_refit_kernel_jo_resident(bf16_r=False) of pallas_em_variants.py, which
-// compute the same functions), and, with the BF16R flag, the bf16-responsibilities
+// compute the same functions), and, with BF16R (ratio mode 6), the bf16-responsibilities
 // kernels of precision="fast" in enstop_tpu/ops/pallas_em_variants.py:
 //   _make_em_kernel_jo_resident(bf16_r=True)     -> WITH_B, BF16R (+ the word pass)
 //   _make_refit_kernel_jo_resident(bf16_r=True)  -> WITH_B, BF16R
+// and the TPU experiments outside the package:
+//   scripts/exp_divide_pipeline.py:88 (the kernel of _make_em_call: the EM step
+//     without LL in seven ratio modes)  -> WITH_B, RATIO 0-6 (+ the word pass)
+//   scripts/exp_kernel_variants.py:52 _make_em_kernel_nomask (the mask-free
+//     step, since shipped as _make_em_kernel)  -> as _make_em_kernel
+// BF16R is ratio mode 6 (lane_walk.cuh: ratio<RATIO>), the fp32 modes mode 0;
+// modes 1-5 are built for bf16 X, B only, at (L, TPL) = (4, 8) alone.
 //
 // What is computed, for a zero-padded dense count matrix X (n, m) and factors
 // zd = P(z|d) (n, kp), wz = P(w|z) (kp, m), per-document weights w (n):
@@ -65,12 +72,12 @@ namespace {
 
 using row_walk::Args;
 
-template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, int RATIO>
 __global__ void __launch_bounds__(row_walk::kMaxWarps * 32)
 em_accumulate(Args a, float* __restrict__ ll_part) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float ll_warp[row_walk::kMaxWarps];
-  float ll = row_walk::walk_rows<XT, L, TPL, V, WITH_B, COMPUTE_LL, BF16R>(a, smem);
+  float ll = row_walk::walk_rows<XT, L, TPL, V, WITH_B, COMPUTE_LL, RATIO>(a, smem);
   if (COMPUTE_LL) {
     ll = row_walk::warp_sum(ll);
     if ((threadIdx.x & 31) == 0) ll_warp[threadIdx.x >> 5] = ll;
@@ -83,9 +90,9 @@ em_accumulate(Args a, float* __restrict__ ll_part) {
   }
 }
 
-template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, int RATIO>
 cudaError_t launch(const Args& a, float* ll_part, cudaStream_t s) {
-  const auto kernel = em_accumulate<XT, L, TPL, V, WITH_B, COMPUTE_LL, BF16R>;
+  const auto kernel = em_accumulate<XT, L, TPL, V, WITH_B, COMPUTE_LL, RATIO>;
   const size_t bytes = row_walk::smem_bytes(a.warps, a.stages, a.window, a.queue);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -95,62 +102,85 @@ cudaError_t launch(const Args& a, float* ll_part, cudaStream_t s) {
 }
 
 // the modes: B + LL, B only, their bf16r forms, and the LL sweep (fp32 only:
-// precision="fast" keeps the fp32 LL)
+// precision="fast" keeps the fp32 LL); ratio modes 1-5 (lane_walk.cuh) only
+// where the divide experiment ran its step: bf16 X, B only, at the walk shape
+// of kp 17-32, (L, TPL) = (4, 8)
 template <typename XT, int L, int TPL, int V>
-cudaError_t by_mode(int bf16_r, int with_b, int compute_ll, const Args& a, float* ll_part,
+cudaError_t by_mode(int ratio, int with_b, int compute_ll, const Args& a, float* ll_part,
                     cudaStream_t s) {
+  using row_walk::kBf16r;
+  using row_walk::kF32Div;
   if (with_b) {
-    if (bf16_r) {
-      return compute_ll ? launch<XT, L, TPL, V, true, true, true>(a, ll_part, s)
-                        : launch<XT, L, TPL, V, true, false, true>(a, ll_part, s);
+    if (ratio == kBf16r) {
+      return compute_ll ? launch<XT, L, TPL, V, true, true, kBf16r>(a, ll_part, s)
+                        : launch<XT, L, TPL, V, true, false, kBf16r>(a, ll_part, s);
     }
-    return compute_ll ? launch<XT, L, TPL, V, true, true, false>(a, ll_part, s)
-                      : launch<XT, L, TPL, V, true, false, false>(a, ll_part, s);
+    if (ratio == kF32Div) {
+      return compute_ll ? launch<XT, L, TPL, V, true, true, kF32Div>(a, ll_part, s)
+                        : launch<XT, L, TPL, V, true, false, kF32Div>(a, ll_part, s);
+    }
+    if constexpr (sizeof(XT) == 2 && L == 4 && TPL == 8) {
+      if (!compute_ll) {
+        switch (ratio) {
+          case 1: return launch<XT, L, TPL, V, true, false, 1>(a, ll_part, s);
+          case 2: return launch<XT, L, TPL, V, true, false, 2>(a, ll_part, s);
+          case 3: return launch<XT, L, TPL, V, true, false, 3>(a, ll_part, s);
+          case 4: return launch<XT, L, TPL, V, true, false, 4>(a, ll_part, s);
+          case 5: return launch<XT, L, TPL, V, true, false, 5>(a, ll_part, s);
+          default: break;
+        }
+      }
+    }
+    return cudaErrorInvalidValue;
   }
-  if (compute_ll && !bf16_r) return launch<XT, L, TPL, V, false, true, false>(a, ll_part, s);
+  if (compute_ll && ratio == kF32Div) {
+    return launch<XT, L, TPL, V, false, true, kF32Div>(a, ll_part, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 // the instance of shape I of kShapes (then, for bf16 X with V = 4 in the B-only
 // mode, of kSweepShapes) that is (l, tpl)
 template <typename XT, int V, int I>
-cudaError_t by_shape(int l, int tpl, int bf16_r, int with_b, int compute_ll, const Args& a,
+cudaError_t by_shape(int l, int tpl, int ratio, int with_b, int compute_ll, const Args& a,
                      float* ll_part, cudaStream_t s) {
   constexpr int kN = row_walk::kNumShapes;
   constexpr bool kSweep = V == 4 && sizeof(XT) == 2;
   if constexpr (I < kN) {
     constexpr int L = row_walk::kShapes[I][0], TPL = row_walk::kShapes[I][1];
-    if (l == L && tpl == TPL) return by_mode<XT, L, TPL, V>(bf16_r, with_b, compute_ll, a, ll_part, s);
-    return by_shape<XT, V, I + 1>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
+    if (l == L && tpl == TPL) {
+      return by_mode<XT, L, TPL, V>(ratio, with_b, compute_ll, a, ll_part, s);
+    }
+    return by_shape<XT, V, I + 1>(l, tpl, ratio, with_b, compute_ll, a, ll_part, s);
   } else if constexpr (kSweep && I < kN + row_walk::kNumSweepShapes) {
     constexpr int L = row_walk::kSweepShapes[I - kN][0], TPL = row_walk::kSweepShapes[I - kN][1];
-    if (l == L && tpl == TPL && with_b && !compute_ll && !bf16_r) {
-      return launch<XT, L, TPL, V, true, false, false>(a, ll_part, s);
+    if (l == L && tpl == TPL && with_b && !compute_ll && ratio == row_walk::kF32Div) {
+      return launch<XT, L, TPL, V, true, false, row_walk::kF32Div>(a, ll_part, s);
     }
-    return by_shape<XT, V, I + 1>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
+    return by_shape<XT, V, I + 1>(l, tpl, ratio, with_b, compute_ll, a, ll_part, s);
   } else {
     return cudaErrorInvalidValue;
   }
 }
 
 template <typename XT>
-cudaError_t by_chunk(int vec, int l, int tpl, int bf16_r, int with_b, int compute_ll,
+cudaError_t by_chunk(int vec, int l, int tpl, int ratio, int with_b, int compute_ll,
                      const Args& a, float* ll_part, cudaStream_t s) {
-  return vec ? by_shape<XT, 4, 0>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s)
-             : by_shape<XT, 1, 0>(l, tpl, bf16_r, with_b, compute_ll, a, ll_part, s);
+  return vec ? by_shape<XT, 4, 0>(l, tpl, ratio, with_b, compute_ll, a, ll_part, s)
+             : by_shape<XT, 1, 0>(l, tpl, ratio, with_b, compute_ll, a, ll_part, s);
 }
 
 }  // namespace
 
-// One entry point for all the modes. Returns cudaGetLastError() after the
+// One entry point for all the modes; ratio is lane_walk.cuh's mode (0 fp32,
+// 6 bf16r, 1-5 as by_mode builds them). Returns cudaGetLastError() after the
 // launch (0 on success). lanes and tpl are the walk's shape (L, TPL), one of
 // row_walk.cuh's kShapes (or, for bf16 X in the B-only mode with kp % 4 == 0,
 // kSweepShapes) with L * TPL >= kp; warps, stages, window and queue the
-// stream's (row_walk::check). ll_part holds one float
-// per block of the grid (ceil(n / warps)); with COMPUTE_LL off it is not
-// written. The caller checks shapes, 16-byte alignment of X's rows and kp (at
-// most 256).
-extern "C" int enstop_em_dense(int x_bf16, int bf16_r, int with_b, int compute_ll, int lanes,
+// stream's (row_walk::check). ll_part holds one float per block of the grid
+// (ceil(n / warps)); with COMPUTE_LL off it is not written. The caller checks
+// shapes, 16-byte alignment of X's rows and kp (at most 256).
+extern "C" int enstop_em_dense(int x_bf16, int ratio, int with_b, int compute_ll, int lanes,
                                int tpl, int warps, int stages, int window, int queue,
                                const void* X, const void* zd, const void* wzT, const void* w,
                                void* B, void* ll_part, long long n, long long m, int kp,
@@ -159,11 +189,12 @@ extern "C" int enstop_em_dense(int x_bf16, int bf16_r, int with_b, int compute_l
                static_cast<const float*>(w), static_cast<float*>(B), n, m, 1, kp,
                warps, stages, window, queue};
   cudaError_t err = row_walk::check(a, lanes, tpl, x_bf16 ? 8 : 4);
+  if (err == cudaSuccess && (ratio < 0 || ratio > row_walk::kBf16r)) err = cudaErrorInvalidValue;
   if (err != cudaSuccess || n <= 0) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = row_walk::vec_ok(a, tpl);
   float* llp = static_cast<float*>(ll_part);
-  err = x_bf16 ? by_chunk<__nv_bfloat16>(vec, lanes, tpl, bf16_r, with_b, compute_ll, a, llp, s)
-               : by_chunk<float>(vec, lanes, tpl, bf16_r, with_b, compute_ll, a, llp, s);
+  err = x_bf16 ? by_chunk<__nv_bfloat16>(vec, lanes, tpl, ratio, with_b, compute_ll, a, llp, s)
+               : by_chunk<float>(vec, lanes, tpl, ratio, with_b, compute_ll, a, llp, s);
   return (int)err;
 }

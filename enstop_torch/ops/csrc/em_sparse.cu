@@ -3,12 +3,16 @@
 // Replaces the TPU kernels in enstop_tpu/ops/pallas_sell.py:
 //   _make_word_pass_kernel (l.456)  -> WORD = true:  A^T (m, kp) and optional LL
 //   _make_doc_pass_kernel  (l.490)  -> WORD = false: B (n, kp) and optional LL
+// and sums A for the dense EM steps (em_dense.cu), in every ratio mode of
+// lane_walk.cuh: 0 (fp32), 6 (BF16R, below) and, for the step of the divide
+// experiment (scripts/exp_divide_pipeline.py:88), 1-5, built for the word pass
+// without THRESH at (L, TPL) = (4, 8) alone, with the fp32 operand of RATIO 0.
 // which compute, per nonzero (d, w, x) of the corpus, with zd = P(z|d) (n, kp),
 // wzT = P(w|z)^T (m, kp) and per-document weights w (n):
 //   v      = zd[d, :] * wzT[w, :]                 (one fp32 product per topic)
 //   s      = sum_z v                              (the LL's normalizer, never masked)
 //   v_used = THRESH ? (v > thresh ? v : 0) : v,   s_used = sum_z v_used
-//   r      = x / max(s_used, 1e-30)
+//   r      = ratio<RATIO>(x, max(s_used, 1e-30))      (x / max(s_used, 1e-30): RATIO 0)
 //   word pass:  A^T[w, :] += (THRESH ? v_used : zd[d, :]) * w[d] * r
 //   doc pass:   B[d, :]   += (THRESH ? v_used : wzT[w, :]) * r      (never weighted)
 //   LL         += x * log(max(s, 1e-30)) * w[d]
@@ -74,7 +78,8 @@
 // both factor tables and the weights once, the output once: about 162 MB for the
 // word pass at 250,000 x 141,000 with 14.8 M nonzeros and k = 20, 0.048 ms at
 // 3.35 TB/s.
-// All arithmetic is fp32 (IEEE division and logf). kp is at most 256.
+// All arithmetic is fp32 (IEEE division in RATIO 0 and 6, and logf). kp is at
+// most 256.
 
 #include "lane_walk.cuh"
 
@@ -91,7 +96,7 @@ constexpr int kSweepShapes[][2] = {{1, 20}, {1, 24}, {2, 12}, {8, 4}, {8, 16}, {
 // chunks of V; compute_ll is the same for every warp of a launch. blockIdx.y is
 // the run: run r reads the tables at r times their strides and writes its own
 // partials.
-template <int L, int TPL, int V, bool WORD, bool THRESH, bool BF16R>
+template <int L, int TPL, int V, bool WORD, bool THRESH, int RATIO>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_pass(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ seg_owner,
              const int32_t* __restrict__ idx, const float* __restrict__ vals,
@@ -102,6 +107,7 @@ segment_pass(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ se
   constexpr int E = 32 / L;
   constexpr int C = TPL / V;
   constexpr int STRIDE = L * V;  // topics from one chunk of a lane to its next
+  constexpr bool BF16R = RATIO == kBf16r;
   static_assert(32 % L == 0 && TPL % V == 0, "L divides the warp, V divides TPL");
   const int lane = threadIdx.x & 31;
   const int slot = lane / L;        // the entry slot of the lane's group
@@ -200,7 +206,7 @@ segment_pass(const int64_t* __restrict__ seg_ptr, const int32_t* __restrict__ se
         if (THRESH) s_used += __shfl_xor_sync(kFull, s_used, off);
       }
       const float den = fmaxf(THRESH ? s_used : s, kTiny);
-      const float r = BF16R ? bf16r(bf16r(x) / bf16r(den)) : x / den;
+      const float r = ratio<RATIO>(x, den);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
 #pragma unroll
@@ -293,10 +299,10 @@ cudaError_t reduce(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int L, int TPL, int V, bool WORD, bool THRESH, bool BF16R>
+template <int L, int TPL, int V, bool WORD, bool THRESH, int RATIO>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.n_seg > 0) {
-    segment_pass<L, TPL, V, WORD, THRESH, BF16R>
+    segment_pass<L, TPL, V, WORD, THRESH, RATIO>
         <<<dim3(blocks_of(a.n_seg), (unsigned)a.runs), kWarps * 32, 0, stream>>>(
             a.seg_ptr, a.seg_owner, a.idx, a.vals, a.zd, a.wzT, a.w, a.thresh, a.partial,
             a.ll_seg, a.n_seg, a.kp, a.compute_ll, a.zd_stride, a.wzT_stride, a.w_stride);
@@ -310,33 +316,46 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return reduce<8>(a, stream);
 }
 
-// the modes: word pass plain, thresholded or bf16r; doc pass plain or thresholded
+// the modes: word pass plain, thresholded or bf16r; doc pass plain or
+// thresholded; ratio modes 1-5 for the plain word pass at (L, TPL) = (4, 8)
 template <int L, int TPL, int V>
-cudaError_t by_mode(int word, int thresholded, int bf16_r, const Args& a, cudaStream_t s) {
-  if (word) {
-    if (bf16_r) {
-      return thresholded ? cudaErrorInvalidValue : launch<L, TPL, V, true, false, true>(a, s);
-    }
-    return thresholded ? launch<L, TPL, V, true, true, false>(a, s)
-                       : launch<L, TPL, V, true, false, false>(a, s);
+cudaError_t by_mode(int word, int thresholded, int ratio, const Args& a, cudaStream_t s) {
+  if (ratio != kF32Div && (!word || thresholded)) return cudaErrorInvalidValue;
+  if (!word) {
+    return thresholded ? launch<L, TPL, V, false, true, kF32Div>(a, s)
+                       : launch<L, TPL, V, false, false, kF32Div>(a, s);
   }
-  if (bf16_r) return cudaErrorInvalidValue;
-  return thresholded ? launch<L, TPL, V, false, true, false>(a, s)
-                     : launch<L, TPL, V, false, false, false>(a, s);
+  if (thresholded) return launch<L, TPL, V, true, true, kF32Div>(a, s);
+  switch (ratio) {
+    case kF32Div: return launch<L, TPL, V, true, false, kF32Div>(a, s);
+    case kBf16r: return launch<L, TPL, V, true, false, kBf16r>(a, s);
+    default: break;
+  }
+  if constexpr (L == 4 && TPL == 8) {
+    switch (ratio) {
+      case 1: return launch<L, TPL, V, true, false, 1>(a, s);
+      case 2: return launch<L, TPL, V, true, false, 2>(a, s);
+      case 3: return launch<L, TPL, V, true, false, 3>(a, s);
+      case 4: return launch<L, TPL, V, true, false, 4>(a, s);
+      case 5: return launch<L, TPL, V, true, false, 5>(a, s);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // the instance of shape I of kShapes (lane_walk.cuh; then, with V = 4, of
 // kSweepShapes) that is (l, tpl)
 template <int V, int I>
-cudaError_t by_shape(int l, int tpl, int word, int thresholded, int bf16_r, const Args& a,
+cudaError_t by_shape(int l, int tpl, int word, int thresholded, int ratio, const Args& a,
                      cudaStream_t s) {
   constexpr int kN = kNumShapes;
   constexpr int kSweep = V == 4 ? sizeof(kSweepShapes) / sizeof(kSweepShapes[0]) : 0;
   if constexpr (I < kN + kSweep) {
     constexpr int L = I < kN ? kShapes[I][0] : kSweepShapes[I - kN][0];
     constexpr int TPL = I < kN ? kShapes[I][1] : kSweepShapes[I - kN][1];
-    if (l == L && tpl == TPL) return by_mode<L, TPL, V>(word, thresholded, bf16_r, a, s);
-    return by_shape<V, I + 1>(l, tpl, word, thresholded, bf16_r, a, s);
+    if (l == L && tpl == TPL) return by_mode<L, TPL, V>(word, thresholded, ratio, a, s);
+    return by_shape<V, I + 1>(l, tpl, word, thresholded, ratio, a, s);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -345,6 +364,7 @@ cudaError_t by_shape(int l, int tpl, int word, int thresholded, int bf16_r, cons
 }  // namespace
 
 // One entry point for both passes: the segment pass, then the owner reduction,
+// in ratio mode `ratio` (lane_walk.cuh; 0 fp32, 6 bf16r, 1-5 as by_mode builds them),
 // on one stream, for `runs` runs that share the layout (1 <= runs <= 65535).
 // Returns cudaGetLastError() after the launches (0 on success). lanes and tpl
 // are the walk's shape (L, TPL), one of kShapes (or, with kp % 4 == 0,
@@ -353,14 +373,15 @@ cudaError_t by_shape(int l, int tpl, int word, int thresholded, int bf16_r, cons
 // compute_ll), out (n_owner, kp); the runs' blocks follow each other. n is
 // n_index for the word pass and n_owner for the doc pass, m the other. The
 // caller checks shapes, index ranges and kp (at most 256).
-extern "C" int enstop_em_sparse(int word, int thresholded, int compute_ll, int bf16_r,
+extern "C" int enstop_em_sparse(int word, int thresholded, int compute_ll, int ratio,
                                 int lanes, int tpl, long long runs, const void* seg_ptr,
                                 const void* seg_owner, const void* owner_seg_ptr,
                                 const void* idx, const void* vals, const void* zd,
                                 const void* wzT, const void* w, float thresh, void* partial,
                                 void* ll_seg, void* out, long long n_seg, long long n_owner,
                                 long long n_index, int kp, void* stream) {
-  if (kp <= 0 || kp > 256 || (long long)lanes * tpl < kp || runs < 1 || runs > 65535) {
+  if (kp <= 0 || kp > 256 || (long long)lanes * tpl < kp || runs < 1 || runs > 65535 ||
+      ratio < 0 || ratio > lane_walk::kBf16r) {
     return (int)cudaErrorInvalidValue;
   }
   const long long n = word ? n_index : n_owner, m = word ? n_owner : n_index;
@@ -374,7 +395,7 @@ extern "C" int enstop_em_sparse(int word, int thresholded, int compute_ll, int b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = kp % 4 == 0 && tpl % 4 == 0 &&
                    ((uintptr_t)zd | (uintptr_t)wzT | (uintptr_t)partial) % 16 == 0;
-  const cudaError_t err = vec ? by_shape<4, 0>(lanes, tpl, word, thresholded, bf16_r, a, s)
-                              : by_shape<1, 0>(lanes, tpl, word, thresholded, bf16_r, a, s);
+  const cudaError_t err = vec ? by_shape<4, 0>(lanes, tpl, word, thresholded, ratio, a, s)
+                              : by_shape<1, 0>(lanes, tpl, word, thresholded, ratio, a, s);
   return (int)err;
 }

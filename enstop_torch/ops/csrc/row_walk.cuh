@@ -7,8 +7,10 @@
 //   S = zd[r, i, :] . wzT[r, j, :],  den = max(S, 1e-30),  for every X[i, j] != 0
 //   B[r, i, :] = sum_j R(x, den) * W(wzT[r, j, :])          (never weighted)
 //   ll        += x * logf(den) * w[i]                        (COMPUTE_LL, one run)
-// R(x, den) = x / den and W(v) = v, or with BF16R bf16(bf16(x) / bf16(den)) and
-// bf16(v), each bf16 value widened to fp32 (precision="fast").
+// R(x, den) = lane_walk::ratio<RATIO>(x, den): x / den (RATIO 0) and W(v) = v,
+// or with RATIO 6 (BF16R) bf16(bf16(x) / bf16(den)) and bf16(v), each bf16
+// value widened to fp32 (precision="fast"); RATIO 1-5 are the other ratio
+// modes of the divide experiment, with W(v) = v (lane_walk.cuh).
 //
 // Three stages, decoupled:
 //   1. Stream. The row is cut into windows of `window` bytes (a multiple of
@@ -51,7 +53,8 @@
 // queue length; repeat launches give the same bits, and a batched
 // run's B equals a single run's bit for bit.
 //
-// All arithmetic is fp32 (IEEE division, logf; built without --use_fast_math).
+// All arithmetic is fp32 (IEEE division in RATIO 0 and 6, logf; built without
+// --use_fast_math).
 // kp is at most 256, m below 2^31 columns.
 
 #pragma once
@@ -317,8 +320,9 @@ struct RowStream {
 // One run's walk over a row's queued nonzeros: lane groups of L lanes, E = 32 / L
 // entry slots, TPL topics a lane in C = TPL / V chunks of V. Chunk c of the lane
 // at place g in its group holds topics (c L + g) V .. (c L + g) V + V - 1.
-template <int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+template <int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, int RATIO>
 struct Walk {
+  static constexpr bool BF16R = RATIO == kBf16r;
   static constexpr int E = 32 / L;
   static constexpr int C = TPL / V;
   static constexpr int STRIDE = L * V;  // topics from one chunk of a lane to its next
@@ -404,7 +408,7 @@ struct Walk {
       for (int off = 1; off < L; off <<= 1) s += __shfl_xor_sync(kFull, s, off);
       const float den = fmaxf(s, kTiny);
       if (WITH_B) {
-        const float r = BF16R ? bf16r(bf16r(x) / bf16r(den)) : x / den;
+        const float r = ratio<RATIO>(x, den);
 #pragma unroll
         for (int c = 0; c < C; ++c) {
 #pragma unroll
@@ -445,12 +449,12 @@ struct Walk {
 // queue. Only a row whose nonzeros overflow the queue is streamed again for
 // each further run, as the first run's walk had to start before the row's
 // end. Returns the warp lane's LL (COMPUTE_LL: one run).
-template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, bool BF16R>
+template <typename XT, int L, int TPL, int V, bool WITH_B, bool COMPUTE_LL, int RATIO>
 __device__ float walk_rows(const Args& a, unsigned char* smem) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   RowStream<XT> stream(smem, a, warp);
-  Walk<L, TPL, V, WITH_B, COMPUTE_LL, BF16R> walk(lane, a.kp);
+  Walk<L, TPL, V, WITH_B, COMPUTE_LL, RATIO> walk(lane, a.kp);
   const int n_chunks = (int)(a.m / XVec<XT>::kN);
   const int64_t i = (int64_t)blockIdx.x * a.warps + warp;
   if (i >= a.n) return 0.f;

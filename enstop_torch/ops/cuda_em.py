@@ -26,8 +26,17 @@ counterpart of the TPU's ``jo_res_bf16r`` layout; its log-likelihood sweep is
 the fp32 LL kernel, as in JAX.
 
 ``LAUNCHES`` counts kernel launches by kernel and mode (``em_bf16r`` and
-``refit_bf16r`` are the fast modes); it is raised only where a kernel is
-launched.
+``refit_bf16r`` are the fast modes, ``em_<mode>`` and ``word_pass_<mode>``
+the ratio modes below); it is raised only where a kernel is launched.
+
+``_em_accumulators_ratio`` (private: no estimator reaches it) is the port of
+the TPU experiment ``scripts/exp_divide_pipeline.py`` (``_make_em_call``):
+the EM step's ``(A, B)`` without the LL, its ratio ``x / max(S, 1e-30)`` in
+one of ``RATIO_MODES`` (``csrc/lane_walk.cuh``). ``"f32div"`` is the fp32
+step and ``"bf16r"`` the fast one, the same launches as
+:func:`em_accumulators_fused`; the five others are built for bf16 X at kp
+17-32 only. The experiment's other kernel, the mask-free step of
+``scripts/exp_kernel_variants.py``, is the shipped step.
 
 The dense kernel walks each row as ``csrc/row_walk.cuh`` describes: X staged
 through a ring of windows in shared memory, its nonzeros compacted into a
@@ -45,9 +54,10 @@ import torch
 
 from . import em as em_ops
 from ._build import LAUNCHES, library
-from .cuda_sparse import MAX_KP, build_side, walk_shape, word_pass
+from .cuda_sparse import MAX_KP, _pass, _ratio_of, build_side, walk_shape, word_pass
 
 _TINY = em_ops._TINY
+RATIO_MODES = em_ops.RATIO_MODES
 _SMEM_LIMIT = 232_448 - 1024  # shared memory a block may use on an H100, less the static part
 # the walk shapes (L, TPL) built beside cuda_sparse.WALK_SHAPES, for bf16 X in the
 # B-only mode with kp % 4 == 0 (csrc/row_walk.cuh: kSweepShapes)
@@ -128,9 +138,10 @@ def word_side_of(X):
     return build_side(cols, rows, X[rows, cols].float(), X.shape[1], X.shape[0])
 
 
-def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False, shape=None,
+def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, ratio="f32div", shape=None,
             stream=ROW_STREAM):
     """Validate, allocate and launch one dense kernel; returns ``(B, ll, wzT, w)``.
+    ``ratio`` is one of ``RATIO_MODES`` (``"bf16r"``: ``precision="fast"``);
     ``shape`` (L, TPL) and ``stream`` (:class:`RowStream`) shape the walk."""
     if X.dim() != 2 or zd.dim() != 2 or wz.dim() != 2:
         raise ValueError("X, p_z_given_d and p_w_given_z must be 2-D")
@@ -167,14 +178,15 @@ def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, bf16_r=False, sh
     fn = library("em_dense").enstop_em_dense
     with torch.cuda.device(dev):
         err = fn(
-            int(X.dtype == torch.bfloat16), int(bf16_r), int(with_b), int(compute_ll), *args,
+            int(X.dtype == torch.bfloat16), RATIO_MODES.index(ratio), int(with_b),
+            int(compute_ll), *args,
             X.data_ptr(), zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
             None if B is None else B.data_ptr(), ll_part.data_ptr(),
             n, m, kp, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"em_dense kernel launch failed: cudaError {err}")
-    LAUNCHES[kind + "_bf16r" if bf16_r else kind] += 1
+    LAUNCHES[kind if ratio == "f32div" else f"{kind}_{ratio}"] += 1
     return B, ll_part.sum(), wzT, w
 
 
@@ -189,10 +201,34 @@ def em_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
         A, B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return A, B, ll if compute_ll else torch.zeros_like(ll)
     B, ll, wzT, w = _launch("em", X, p_z_given_d, p_w_given_z, sample_weight,
-                            True, compute_ll, bf16_r)
+                            True, compute_ll, _ratio_of(bf16_r))
     AT, _ = word_pass(word_side_of(X) if word is None else word, p_z_given_d, wzT, w,
                       compute_ll=False, bf16r=bf16_r)
     return AT.t(), B, ll
+
+
+def _em_accumulators_ratio(X, p_z_given_d, p_w_given_z, sample_weight=None, mode="f32div",
+                           word=None):
+    """Raw ``(A, B)`` of one EM step without the LL, the ratio in ``mode``
+    (one of ``RATIO_MODES``): the counterpart of ``_make_em_call(mode, ...)``
+    in ``scripts/exp_divide_pipeline.py``. On a CUDA tensor the dense B pass,
+    then the word pass for A over ``word`` (made from X when None), both in
+    ``mode``. Raises ``ValueError`` on an unknown mode, and for the five modes
+    other than ``"f32div"`` and ``"bf16r"`` unless X is bfloat16 and kp lies
+    in 17-32 (the walk shape (4, 8), the only one they are built at)."""
+    if mode not in RATIO_MODES:
+        raise ValueError(f"unknown ratio mode {mode!r}; one of {RATIO_MODES}")
+    kp = p_z_given_d.shape[-1]
+    if mode not in ("f32div", "bf16r") and (X.dtype != torch.bfloat16
+                                            or walk_shape(kp) != (4, 8)):
+        raise ValueError(f"ratio mode {mode!r} is built for bfloat16 X at kp 17-32, not "
+                         f"{X.dtype} at kp {kp}")
+    if _on_cpu(X):
+        return em_ops.em_accumulators_ratio(X, p_z_given_d, p_w_given_z, sample_weight, mode)
+    B, _, wzT, w = _launch("em", X, p_z_given_d, p_w_given_z, sample_weight, True, False, mode)
+    AT, _ = _pass(word_side_of(X) if word is None else word, p_z_given_d, wzT, w, True, None,
+                  False, mode)
+    return AT.t(), B
 
 
 def em_step_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
@@ -218,7 +254,7 @@ def refit_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
         B, ll = plain(X, p_z_given_d, p_w_given_z, sample_weight)
         return B, ll if compute_ll else torch.zeros_like(ll)
     B, ll, _, _ = _launch("refit", X, p_z_given_d, p_w_given_z, sample_weight,
-                          True, compute_ll, bf16_r)
+                          True, compute_ll, _ratio_of(bf16_r))
     return B, ll
 
 

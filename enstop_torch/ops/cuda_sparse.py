@@ -18,6 +18,12 @@ version (``word_pass_plain``, ``doc_pass_plain``: gathers and
 ``index_add_``, on any device); on a CUDA tensor it launches the kernel or
 raises. ``CALLS`` counts calls of the plain versions. :func:`walk_shape`
 picks the kernel's lane groups for a topic count.
+
+The private ``ratio`` argument of ``_pass``, ``_plain_pass`` and
+:func:`launch_pass` is the E-step's ratio mode (``em.RATIO_MODES``,
+``csrc/lane_walk.cuh``): ``"f32div"`` by default, ``"bf16r"`` for
+``bf16r=True``, and for the word pass without threshold at kp 17-32 the
+other modes of the divide experiment (``cuda_em._em_accumulators_ratio``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ._build import LAUNCHES, library
+from .em import RATIO_MODES, ratio as _ratio
 
 __all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk_shape",
            "launch_pass", "word_pass", "doc_pass", "word_pass_plain", "doc_pass_plain",
@@ -121,7 +128,12 @@ def _bf16(a):
     return a.to(torch.bfloat16).float()
 
 
-def _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r=False):
+def _ratio_of(bf16r):
+    """The ratio mode of the fp32 (False) or bf16r (True) passes."""
+    return "bf16r" if bf16r else "f32div"
+
+
+def _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, ratio="f32div"):
     """The plain version of both passes; see ``csrc/em_sparse.cu``."""
     _check(side, zd, wzT, w, word)
     CALLS["word_pass" if word else "doc_pass"] += 1
@@ -138,10 +150,9 @@ def _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r=False):
         a, s_used = g, s
     if word:
         a = a * wd[:, None]
-    if bf16r:
-        a, r = _bf16(a), _bf16(_bf16(x) / _bf16(s_used.clamp_min(_TINY)))
-    else:
-        r = x / s_used.clamp_min(_TINY)
+    if ratio == "bf16r":
+        a = _bf16(a)
+    r = _ratio(x, s_used.clamp_min(_TINY), ratio)
     # each owner's terms summed in float64 and rounded once: the plain version
     # is the more exact side of a comparison (a frequent word holds up to
     # 250,000 terms, whose float32 sums differ by order by more than 1e-5)
@@ -175,25 +186,27 @@ def _ones_if_none(w, zd):
     return torch.ones(zd.shape[0], dtype=torch.float32, device=zd.device) if w is None else w
 
 
-def _pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r=False):
+def _pass(side, zd, wzT, w, word, thresh, compute_ll, ratio="f32div"):
     name = "word_pass" if word else "doc_pass"
     w = _ones_if_none(w, zd)
     if _check(side, zd, wzT, w, word):
-        return _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, bf16r)
+        return _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, ratio)
     if any(t.dtype != torch.float32 for t in (zd, wzT, w)):
         raise TypeError("factors and weights must be float32")
     out, ll_seg = launch_pass(side, zd.contiguous(), wzT.contiguous(), w.contiguous(), word,
-                              thresh, compute_ll, bf16r)
-    LAUNCHES[name + ("_bf16r" if bf16r else "_thresh" if thresh is not None else "")] += 1
+                              thresh, compute_ll, ratio)
+    mode = "_thresh" if thresh is not None else "" if ratio == "f32div" else "_" + ratio
+    LAUNCHES[name + mode] += 1
     return out, ll_seg.sum()  # the per-segment LL partials, summed in a fixed order
 
 
-def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, bf16r=False):
+def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, ratio="f32div"):
     """Launch one pass over ``side`` for R runs that share it: contiguous
     float32 CUDA tables ``zd`` (R, n, kp) or (n, kp), ``wzT`` (R, m, kp) or
-    (m, kp) and ``w`` (R, n) or (n,), shapes checked by the caller. Returns the
-    raw accumulator (R, n_owner, kp) or (n_owner, kp) and the per-segment LL
-    partials (R, n_seg) or (n_seg,), empty with ``compute_ll=False``."""
+    (m, kp) and ``w`` (R, n) or (n,), shapes checked by the caller; ``ratio``
+    one of ``RATIO_MODES``. Returns the raw accumulator (R, n_owner, kp) or
+    (n_owner, kp) and the per-segment LL partials (R, n_seg) or (n_seg,),
+    empty with ``compute_ll=False``."""
     runs = zd.shape[:-2]  # () for one run, (R,) for R
     R, kp = (runs[0] if runs else 1), zd.shape[-1]
     lanes, tpl = walk_shape(kp)
@@ -204,8 +217,8 @@ def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, bf16r=Fal
     out = torch.empty((*runs, side.n_owner, kp), dtype=torch.float32, device=dev)
     fn = library("em_sparse").enstop_em_sparse
     with torch.cuda.device(dev):
-        err = fn(int(word), int(thresh is not None), int(compute_ll), int(bf16r), lanes, tpl,
-                 R, side.seg_ptr.data_ptr(), side.seg_owner.data_ptr(),
+        err = fn(int(word), int(thresh is not None), int(compute_ll), RATIO_MODES.index(ratio),
+                 lanes, tpl, R, side.seg_ptr.data_ptr(), side.seg_owner.data_ptr(),
                  side.owner_seg_ptr.data_ptr(), side.idx.data_ptr(), side.vals.data_ptr(),
                  zd.data_ptr(), wzT.data_ptr(), w.data_ptr(),
                  0.0 if thresh is None else float(thresh),
@@ -225,7 +238,7 @@ def word_pass(side, zd, wzT, w=None, thresh=None, compute_ll=True, bf16r=False):
     rounding of the dense EM step's ``precision="fast"`` (no threshold)."""
     if bf16r and thresh is not None:
         raise ValueError("the bf16r word pass has no threshold")
-    return _pass(side, zd, wzT, w, True, thresh, compute_ll, bf16r)
+    return _pass(side, zd, wzT, w, True, thresh, compute_ll, _ratio_of(bf16r))
 
 
 def doc_pass(side, zd, wzT, w=None, thresh=None, compute_ll=True):
@@ -236,7 +249,8 @@ def doc_pass(side, zd, wzT, w=None, thresh=None, compute_ll=True):
 
 def word_pass_plain(side, zd, wzT, w=None, thresh=None, compute_ll=True, bf16r=False):
     """The plain PyTorch version of :func:`word_pass`, on any device."""
-    return _plain_pass(side, zd, wzT, _ones_if_none(w, zd), True, thresh, compute_ll, bf16r)
+    return _plain_pass(side, zd, wzT, _ones_if_none(w, zd), True, thresh, compute_ll,
+                       _ratio_of(bf16r))
 
 
 def doc_pass_plain(side, zd, wzT, w=None, thresh=None, compute_ll=True):

@@ -23,6 +23,12 @@ counterpart of ``_tile_math(bf16_r=True)`` in
 bf16 operand is widened to float32 first, so a bf16 product is exact and the
 sums stay float32 on any device). The log-likelihood stays float32.
 
+``em_accumulators_ratio`` is the plain version of the TPU experiment's
+step in ``scripts/exp_divide_pipeline.py`` (``_make_em_call``): ``A`` and
+``B`` without the LL, the ratio in one of seven modes (``RATIO_MODES``,
+:func:`ratio`). ``"f32div"`` is :func:`em_accumulators_dense`'s ``A`` and
+``B``, ``"bf16r"`` :func:`em_accumulators_bf16r`'s.
+
 ``batched_accumulators_dense`` is the plain version of the batched kernel
 (``csrc/em_batch.cu``): the accumulators of R runs that share one X, run by
 run, so no (R, n, m) tensor is ever made.
@@ -37,7 +43,11 @@ import torch
 
 _TINY = 1e-30  # guard for S -> 0; stays in the f32 normal range
 
-CALLS = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0, "batch": 0}
+CALLS = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0, "batch": 0,
+         "em_ratio": 0}
+# the E-step's ratio modes of scripts/exp_divide_pipeline.py (MODES), in its
+# order: a mode's index is the kernels' RATIO (csrc/lane_walk.cuh)
+RATIO_MODES = ("f32div", "recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32", "bf16r")
 
 
 def _rownorm(a):
@@ -164,3 +174,39 @@ def refit_step_bf16r(X, p_z_given_d, p_w_given_z, sample_weight=None):
     """One frozen-topics step at ``precision="fast"``."""
     B, ll = refit_accumulators_bf16r(X, p_z_given_d, p_w_given_z, sample_weight)
     return _rownorm(p_z_given_d * B), ll
+
+
+def ratio(x, den, mode):
+    """``x / den`` in ratio mode ``mode`` (``den`` already ``max(S, 1e-30)``),
+    float32, as ``csrc/lane_walk.cuh`` states the modes: ``f32div`` divides,
+    ``recip_mul`` and ``lax_recip`` multiply by the correctly rounded
+    ``1 / den``; ``nr1``, ``nr2`` and ``bf16recip_x32`` multiply by the bf16
+    reciprocal of ``bf16(den)`` (here correctly rounded) after one, two or no
+    Newton steps ``y (2 - den y)``; ``bf16r`` is ``bf16(bf16(x) / bf16(den))``."""
+    if mode == "f32div":
+        return x / den
+    if mode in ("recip_mul", "lax_recip"):
+        return x * (1.0 / den)
+    if mode == "bf16r":
+        return _bf16(_bf16(x) / _bf16(den))
+    if mode not in RATIO_MODES:
+        raise ValueError(f"unknown ratio mode {mode!r}; one of {RATIO_MODES}")
+    y = _bf16(1.0 / _bf16(den))
+    for _ in range({"nr1": 1, "nr2": 2}.get(mode, 0)):
+        y = y * (2.0 - den * y)
+    return x * y
+
+
+def em_accumulators_ratio(X, p_z_given_d, p_w_given_z, sample_weight=None, mode="f32div"):
+    """``(A, B)`` of one EM step, no LL, with ``R = ratio(X, max(S, 1e-30),
+    mode)``: ``A`` weighted, ``B`` never. ``"bf16r"`` also rounds the
+    products' operands, as :func:`em_accumulators_bf16r` does; the other
+    modes keep them float32."""
+    Ssafe = (p_z_given_d @ p_w_given_z).clamp_min(_TINY)
+    R = ratio(X.float(), Ssafe, mode)
+    CALLS["em_ratio"] += 1
+    if mode != "bf16r":
+        return _products(R, p_z_given_d, p_w_given_z, sample_weight)
+    zd_w = p_z_given_d if sample_weight is None else (
+        p_z_given_d * sample_weight.float()[:, None])
+    return _bf16(zd_w).t() @ R, R @ _bf16(p_w_given_z).t()

@@ -183,9 +183,9 @@ def main():
         "B, X all zero": b_only(x=torch.zeros_like(Xd)),
         "B+LL": cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w, True, True), REPS),
         "B": b_only(),
-        "B+LL bf16r": cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w, True, True, True),
+        "B+LL bf16r": cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w, True, True, "bf16r"),
                               REPS),
-        "B bf16r": cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w, True, False, True),
+        "B bf16r": cuda_ms(lambda: cuda_em._launch("em", Xd, zd, wz, w, True, False, "bf16r"),
                            REPS),
         "LL": cuda_ms(lambda: cuda_em._launch("ll", Xd, zd, wz, w, False, True), REPS),
         "B fp32 X": b_only(x=X32),

@@ -34,12 +34,35 @@ def test_import_leaves_jax_and_sklearn_out():
     assert out.stdout.strip() == "[]"
 
 
+def _imported(line):
+    """The top-level package of each module an import statement names."""
+    line = line.split("#")[0].strip()
+    if line.startswith("from "):
+        return [line.split()[1].split(".")[0]] if len(line.split()) > 1 else []
+    if line.startswith("import "):
+        return [name.split()[0].split(".")[0] for name in line[len("import "):].split(",")
+                if name.strip()]
+    return []
+
+
 def test_no_port_source_imports_jax():
-    for path in (ROOT / "enstop_torch").rglob("*.py"):
+    """No port module imports JAX, the JAX package, the reference package
+    ``enstop`` or scikit-learn; nor do ``chip_smoke.py`` and the
+    ``scripts/torch_*.py`` drives, which run on the card's machine (no JAX
+    there), and they import no ``bench`` either (``bench.py`` imports jax)."""
+    banned = {"jax", "jaxlib", "enstop_tpu", "enstop", "sklearn"}
+    sources = [(path, banned) for path in (ROOT / "enstop_torch").rglob("*.py")]
+    drives = [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
+    assert len(drives) >= 7
+    sources += [(path, banned | {"bench"}) for path in drives]
+    for path, names in sources:
         text = path.read_text()
-        for banned in ("import jax", "from jax", "import enstop_tpu", "from enstop_tpu",
+        for line in text.splitlines():
+            found = names.intersection(_imported(line))
+            assert not found, f"{path} imports {found}: {line.strip()}"
+        for needle in ("import jax", "from jax", "import enstop_tpu", "from enstop_tpu",
                        "import sklearn", "from sklearn"):
-            assert banned not in text, f"{path} contains {banned!r}"
+            assert needle not in text, f"{path} contains {needle!r}"
 
 
 def test_exports():
@@ -53,7 +76,9 @@ def test_exports():
     assert set(enstop_torch.LAUNCHES) == {
         "em", "refit", "ll", "em_bf16r", "refit_bf16r",
         "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",
-        "batch", "batch_word"}
+        "batch", "batch_word",
+        *(f"{kind}_{mode}" for mode in ("recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32")
+          for kind in ("em", "word_pass"))}
 
 
 def test_default_cuda_device_raises_without_a_card():

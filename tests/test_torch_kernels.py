@@ -691,3 +691,95 @@ def test_reference_inner_loops_on_the_thresholded_passes(cuda, monkeypatch):
     for g, w_ in zip(got, want):
         _close(torch.from_numpy(g), torch.from_numpy(w_), 1e-4)
     assert np.all(got[1][:, X.col[0]] == 0)  # the threshold dropped the word
+
+
+def _off_alignment(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary: the
+    kernels then take one float a chunk (V = 1)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("mode", cuda_em.RATIO_MODES[1:-1])
+@pytest.mark.parametrize("kp", [20, 24])
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_ratio_modes_match_plain(cuda, mode, kp, vec, weighted):
+    """The five ratio modes of the divide experiment's step on the row walk's
+    edge cases: the dense kernel's B and the word pass's A against the mode's
+    plain version (A to 1e-4; B to 1e-4, for ``bf16recip_x32`` to 1e-3 as the
+    bf16r modes, which it must also match 4 times nearer than the ``f32div``
+    plain version), bit for bit on repeat, each launch counted under its
+    mode."""
+    X, zd, wz, w = _walk_problem(cuda, torch.bfloat16, kp, seed=kp + vec)
+    if vec == 1:
+        zd = _off_alignment(zd)
+    w = w if weighted else None
+    word = cuda_em.word_side_of(X)
+    before = dict(cuda_em.LAUNCHES)
+    A, B = cuda_em._em_accumulators_ratio(X, zd, wz, w, mode, word=word)
+    again = cuda_em._em_accumulators_ratio(X, zd, wz, w, mode, word=word)
+    torch.cuda.synchronize()
+    launched = {key: cuda_em.LAUNCHES[key] - before[key] for key in before}
+    assert {key for key, count in launched.items() if count} == {f"em_{mode}",
+                                                                   f"word_pass_{mode}"}
+    assert launched[f"em_{mode}"] == launched[f"word_pass_{mode}"] == 2
+    assert torch.equal(A, again[0]) and torch.equal(B, again[1])
+    A0, B0 = port_em.em_accumulators_ratio(X, zd, wz, w, mode)
+    lossy = mode == "bf16recip_x32"
+    _close(A, A0, 1e-4)
+    _close(B, B0, BF16R_B_RTOL if lossy else 1e-4)
+    assert float(B[0].abs().sum()) == 0.0  # the empty row
+    if lossy:
+        A32, B32 = port_em.em_accumulators_ratio(X, zd, wz, w, "f32div")
+        for got, own, fp32 in ((A, A0, A32), (B, B0, B32)):
+            near, far = _max_rel(got, own), _max_rel(got, fp32)
+            assert far > 0 and far >= 4 * near, (near, far)
+
+
+@pytest.mark.parametrize("mode, precision", [("f32div", "default"), ("bf16r", "fast")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kp", [24, 40])
+def test_ratio_modes_0_and_6_are_the_shipped_step(cuda, mode, precision, dtype, kp):
+    """Ratio modes ``f32div`` and ``bf16r`` are the shipped fp32 and fast
+    steps, bit for bit and under their launch counts."""
+    X, zd, wz, w = _walk_problem(cuda, dtype, kp, seed=7)
+    word = cuda_em.word_side_of(X)
+    keys = ("em", "word_pass") if mode == "f32div" else ("em_bf16r", "word_pass_bf16r")
+    before = dict(cuda_em.LAUNCHES)
+    A, B = cuda_em._em_accumulators_ratio(X, zd, wz, w, mode, word=word)
+    assert all(cuda_em.LAUNCHES[key] == before[key] + 1 for key in keys)
+    A1, B1, _ = cuda_em.em_accumulators_fused(X, zd, wz, w, compute_ll=False,
+                                              precision=precision, word=word)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A1) and torch.equal(B, B1)
+
+
+def test_ratio_modes_are_built_for_the_experiment_only(cuda):
+    """The five experiment modes exist for bf16 X at kp 17-32, B only and the
+    plain word pass: the wrapper raises ``ValueError`` elsewhere, and the
+    kernels refuse the modes they are not built in."""
+    X, zd, wz, w = _walk_problem(cuda, torch.bfloat16, 40, seed=1)
+    with pytest.raises(ValueError):
+        cuda_em._em_accumulators_ratio(X, zd, wz, w, "nr1")
+    X, zd, wz, w = _walk_problem(cuda, torch.bfloat16, 24, seed=1)
+    with pytest.raises(ValueError):
+        cuda_em._em_accumulators_ratio(X.float(), zd, wz, w, "nr2")
+    with pytest.raises(ValueError):
+        cuda_em._em_accumulators_ratio(X, zd, wz, w, "f32_div")
+    with pytest.raises(RuntimeError):  # with the LL
+        cuda_em._launch("em", X, zd, wz, w, True, True, "nr1")
+    with pytest.raises(RuntimeError):  # the refit's B and LL sweep never take the mode
+        cuda_em._launch("ll", X, zd, wz, w, False, True, "bf16recip_x32")
+    side = cuda_em.word_side_of(X)
+    wzT = wz.t().contiguous()
+    with pytest.raises(RuntimeError):  # thresholded
+        cuda_sparse._pass(side, zd, wzT, w, True, 1e-16, False, "recip_mul")
+    doc = cuda_sparse.build_side(*torch.nonzero(X).t(), X[X != 0].float(), X.shape[0],
+                                 X.shape[1])
+    with pytest.raises(RuntimeError):  # the doc pass
+        cuda_sparse._pass(doc, zd, wzT, w, False, None, False, "lax_recip")
+    torch.cuda.synchronize()
