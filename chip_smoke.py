@@ -79,7 +79,18 @@ launch counts set to 0 just before it and read just after:
     experiment's 20-step EM loop in each mode (best of 3 to a host readback,
     the path whose launches are counted), its LL against the initial one and
     ``f32div``'s; then each mode's step, B pass and word pass alone (CUDA
-    events), the word pass also at config C.
+    events), the word pass also at config C;
+15. the estimators' input contract at 20NG (phase 18), through the public
+    estimators on the card with phase 3's schedule: (a) ``PLSA.fit`` on
+    ``X > 0`` as a bool CSR matrix gives the bits of the same matrix as
+    uint8 counts, dense and ``backend="sparse"``; (b) a CSC, a COO and a
+    ``csr_array`` of the counts give phase 3's CSR fit bit for bit; (c)
+    ``transform`` of 2,000 documents as an ``object`` array of integer counts
+    gives the bits of their float64 array; (d) every public estimator's
+    ``fit``, and ``transform``, refuse a complex matrix, 0 features, 0
+    samples and a 1-D input with ``ValueError``, with the launch counts and
+    the device's allocated bytes unchanged. It prints the host validation
+    wall of the int64 and bool corpora beside the fit walls.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -1283,6 +1294,102 @@ def ratio_phase(Xd, prep, cprep, totals):
     return worst, timing, bounds
 
 
+def same_fit(a, b):
+    """Bit for bit the same topics, embedding and LL trace."""
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("components_", "embedding_", "history_"))
+
+
+def raises_value_error(call):
+    """True if ``call()`` raises ``ValueError``; any other error propagates."""
+    try:
+        call()
+    except ValueError:
+        return True
+    return False
+
+
+def contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals):
+    """Phase 18 at 20NG, k = 20: what the estimators' input checks admit
+    reaches the kernels unchanged, and what they refuse launches nothing."""
+    import scipy.sparse as sp
+
+    import enstop_torch
+    from enstop_torch.models.base import validate_corpus
+    from enstop_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    kw = dict(n_components=20, n_iter=100, n_iter_per_test=10, tolerance=0, random_state=0,
+              device="cuda")
+    as_bool = X > 0
+    walls = {}
+    for label, data in (("int64", X), ("bool", as_bool)):
+        t0 = time.perf_counter()
+        validate_corpus(data)
+        walls[label] = time.perf_counter() - t0
+
+    def fit(data, **extra):
+        t0 = time.perf_counter()
+        fitted = enstop_torch.PLSA(**kw, **extra).fit(data)
+        return fitted, time.perf_counter() - t0
+
+    reset_counts(cuda_em, em)
+    # (a) a bool matrix is the same 0/1 counts as uint8, dense and sparse
+    bool_walls = {}
+    for backend in ("auto", "sparse"):
+        counts, _ = fit(as_bool.astype(np.uint8), backend=backend)
+        bits, bool_walls[backend] = fit(as_bool, backend=backend)
+        check(same_fit(bits, counts), f"PLSA(backend={backend!r}) on bool gives the bits of "
+              "the same matrix as uint8 counts")
+    # (b) the sparse formats give the CSR fit's bits (phase 3's model)
+    for convert in (sp.csc_matrix, sp.coo_matrix, sp.csr_array):
+        check(same_fit(fit(convert(X))[0], model),
+              f"PLSA.fit on a {convert.__name__} gives phase 3's CSR fit bit for bit")
+    # (c) transform of an object array of integer counts is that of its float64 cast
+    dense = docs.toarray()
+    t0 = time.perf_counter()
+    objects = dense.astype(object)
+    object_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_objects = model.transform(objects)
+    object_transform_s = time.perf_counter() - t0
+    check(np.array_equal(from_objects, model.transform(dense.astype(np.float64))),
+          "transform of an object array gives the bits of its float64 cast")
+    del objects
+    read_counts("phase 18 bool, formats and object transform",
+                ("em", "word_pass", "doc_pass", "refit", "ll"), cuda_em, em, totals)
+
+    # (d) each estimator refuses complex, 0-feature, 0-sample and 1-D input in
+    # its check, before any launch or device allocation
+    bad = {"complex": docs.astype(np.complex128), "0 features": sp.csr_matrix((10, 0)),
+           "0 samples": X[:0], "1-D": dense[0]}
+    estimators = (enstop_torch.PLSA, enstop_torch.GPUPLSA, enstop_torch.StreamedPLSA,
+                  enstop_torch.BlockParallelPLSA, enstop_torch.DistributedPLSA,
+                  enstop_torch.EnsembleTopics)
+    torch.cuda.synchronize()
+    launches, allocated = dict(_build.LAUNCHES), torch.cuda.memory_allocated()
+    for cls in estimators:
+        for label, data in bad.items():
+            check(raises_value_error(lambda: cls(n_components=20).fit(data)),
+                  f"{cls.__name__}.fit refuses {label} input with ValueError")
+    for label, data in bad.items():
+        check(raises_value_error(lambda: model.transform(data)),
+              f"PLSA.transform refuses {label} input with ValueError")
+    torch.cuda.synchronize()
+    check(dict(_build.LAUNCHES) == launches, "the refused inputs launched no kernel")
+    check(torch.cuda.memory_allocated() == allocated,
+          "the refused inputs allocated no device memory")
+    print(f"phase 18 input contract at 20NG on {smi}: validation (host) int64 "
+          f"{walls['int64'] * 1e3:.2f} ms, bool {walls['bool'] * 1e3:.2f} ms; PLSA.fit walls: "
+          f"int64 CSR (phase 3) {fit_wall:.3f} s, bool dense {bool_walls['auto']:.3f} s, bool "
+          f"sparse {bool_walls['sparse']:.3f} s; validation / phase 3 fit wall "
+          f"{walls['int64'] / fit_wall:.2%}; object array of {dense.shape[0]} x "
+          f"{dense.shape[1]} made in {object_s:.2f} s, transformed in "
+          f"{object_transform_s:.2f} s; bool = uint8, csc = coo = csr_array = csr bit for bit; "
+          f"{len(estimators)} estimators x {len(bad)} refused inputs, and transform: no "
+          f"launch, no allocation; phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1914,6 +2021,7 @@ def main():
     compat_phase(X, docs, model, sprep, default_stack, cuda_em, em, totals)
     for table, part in zip((worst, timing, bounds), ratio_phase(Xd, prep, cprep, totals)):
         table.update(part)
+    contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import inspect
 import json
+import sys
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -24,43 +26,93 @@ class NotFittedError(ValueError, AttributeError):
     ``NotFittedError`` has the same two bases)."""
 
 
-def check_counts(X, dtype=None):
-    """A CSR copy of a 2-D, numeric, finite count matrix (``dtype`` casts),
-    the checks of the JAX package's ``check_array``; raises ``ValueError``."""
+_RESHAPE = ("Reshape your data either using array.reshape(-1, 1) if your data has a "
+            "single feature or array.reshape(1, -1) if it contains a single sample.")
+
+
+def _reject_complex(X):
+    if X.dtype.kind == "c":
+        raise ValueError(f"Complex data not supported\n{X}\n")
+
+
+def _assert_all_finite(values):
+    """scikit-learn's finiteness check: float values only, one sum first."""
+    if values.dtype.kind != "f":
+        return
+    with np.errstate(over="ignore"):
+        if np.isfinite(values.sum()):
+            return
+    if np.isnan(values).any():
+        raise ValueError("Input contains NaN.")
+    if np.isinf(values).any():
+        raise ValueError(f"Input contains infinity or a value too large for {values.dtype!r}.")
+
+
+def check_array(X, dtype=None):
+    """The rules of scikit-learn's ``check_array(X, accept_sparse="csr",
+    dtype=dtype or "numeric")``, which the JAX package runs, with its
+    exception types and wording: a 2-D numeric, finite matrix with at least
+    one sample and one feature. Sparse input of any format comes back as a
+    ``csr_matrix``, dense input as an ndarray; ``object`` input is cast to
+    float64 (``dtype`` casts everything), ``bool`` stays ``bool``, complex
+    input raises before any cast. Copies only where it converts."""
+    if isinstance(X, np.matrix):
+        raise TypeError(
+            "np.matrix is not supported. Please convert to a numpy array with np.asarray. "
+            "For more information see: "
+            "https://numpy.org/doc/stable/reference/generated/numpy.matrix.html")
     if sp.issparse(X):
-        X = sp.csr_matrix(X)
-    else:
-        X = np.asarray(X)
+        _reject_complex(X)
         if X.ndim != 2:
-            raise ValueError(f"Expected a 2-D count matrix, got {X.ndim}-D input")
+            raise ValueError(f"Expected 2D input, got input with shape {X.shape}.\n{_RESHAPE}")
         X = sp.csr_matrix(X)
-    if not np.issubdtype(X.dtype, np.number):
-        raise ValueError(f"Count matrix must be numeric, not {X.dtype}")
-    if dtype is not None:
-        X = X.astype(dtype)
-    if np.issubdtype(X.dtype, np.floating) and not np.all(np.isfinite(X.data)):
-        raise ValueError("Input contains NaN or infinity")
+        if dtype is None and X.dtype.kind == "O":
+            dtype = np.float64
+        if dtype is not None and X.dtype != dtype:
+            X = X.astype(dtype)
+        _assert_all_finite(X.data)
+    else:
+        numeric = dtype is None
+        if numeric and getattr(getattr(X, "dtype", None), "kind", None) == "O":
+            dtype = np.float64
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", np.exceptions.ComplexWarning)
+            try:
+                X = np.asarray(X, dtype=dtype)
+            except np.exceptions.ComplexWarning as err:
+                raise ValueError(f"Complex data not supported\n{X}\n") from err
+        _reject_complex(X)
+        if X.ndim == 0:
+            raise ValueError(f"Expected 2D array, got scalar array instead:\narray={X}.\n"
+                             f"{_RESHAPE}")
+        if X.ndim == 1:
+            raise ValueError(f"Expected 2D array, got 1D array instead:\narray={X}.\n"
+                             f"{_RESHAPE}")
+        if numeric and X.dtype.kind in "USV":
+            raise ValueError("dtype='numeric' is not compatible with arrays of bytes/strings."
+                             "Convert your data to numeric values explicitly instead.")
+        if X.ndim >= 3:
+            raise ValueError(f"Found array with dim {X.ndim}, while dim <= 2 is required.")
+        _assert_all_finite(X)
+    if X.shape[0] < 1:
+        raise ValueError(f"Found array with {X.shape[0]} sample(s) (shape={X.shape}) while a "
+                         "minimum of 1 is required.")
+    if X.shape[1] < 1:
+        raise ValueError(f"Found array with {X.shape[1]} feature(s) (shape={X.shape}) while "
+                         "a minimum of 1 is required.")
     return X
 
 
+def check_counts(X, dtype=None):
+    """:func:`check_array`, as a ``csr_matrix``."""
+    X = check_array(X, dtype=dtype)
+    return X if sp.issparse(X) else sp.csr_matrix(X)
+
+
 def validate_corpus(X, sample_weight=None):
-    """Dense/sparse 2-D check + standardize_input + non-negativity check +
-    CSR coercion; returns ``(X_csr, sample_weight)``."""
-    if sp.issparse(X):
-        X = X.tocsr()
-        values = X.data
-    else:
-        X = np.asarray(X)
-        values = X
-    if X.ndim != 2:
-        raise ValueError(f"Expected a 2-D count matrix, got {X.ndim}-D input")
-    if X.shape[0] < 1:
-        raise ValueError("Found an empty count matrix (0 documents)")
-    if not np.issubdtype(values.dtype, np.number):
-        raise ValueError(f"Count matrix must be numeric, not {values.dtype}")
-    if np.issubdtype(values.dtype, np.floating) and not np.all(np.isfinite(values)):
-        raise ValueError("Input contains NaN or infinity")
-    X = standardize_input(X)
+    """check_array + standardize_input + non-negativity check + CSR coercion;
+    returns ``(X_csr, sample_weight)``."""
+    X = standardize_input(check_array(X))
     if not sp.issparse(X):
         X = sp.csr_matrix(X)
     sample_weight = _check_sample_weight(sample_weight, X, dtype=np.float32)
@@ -122,9 +174,27 @@ class TopicModelBase:
         args = ", ".join(f"{k}={v!r}" for k, v in self.get_params().items())
         return f"{type(self).__name__}({args})"
 
-    def fit(self, X, y=None, sample_weight=None):
-        self.fit_transform(X, sample_weight=sample_weight)
+    def fit(self, X, y=None, sample_weight=None, **fit_params):
+        self.fit_transform(X, sample_weight=sample_weight, **fit_params)
         return self
+
+    def __sklearn_tags__(self):
+        """The JAX package's scikit-learn tags (those of a ``TransformerMixin,
+        BaseEstimator`` with counts-only sparse input, a refit ``transform``
+        and float32 factors). Only scikit-learn's ``get_tags`` calls this, so
+        the tag classes come from its loaded module; the port imports no
+        scikit-learn."""
+        tags = sys.modules.get("sklearn.utils._tags")
+        if tags is None:
+            raise RuntimeError("__sklearn_tags__ is scikit-learn's hook (sklearn.utils.get_tags); "
+                               "scikit-learn is not loaded")
+        return tags.Tags(
+            estimator_type=None,
+            target_tags=tags.TargetTags(required=False),
+            transformer_tags=tags.TransformerTags(preserves_dtype=[]),
+            input_tags=tags.InputTags(sparse=True, positive_only=True),
+            non_deterministic=True,
+        )
 
     def _validate_transform_input(self, X):
         """Fitted-state + feature-count guard shared by every transform."""

@@ -783,3 +783,45 @@ def test_ratio_modes_are_built_for_the_experiment_only(cuda):
     with pytest.raises(RuntimeError):  # the doc pass
         cuda_sparse._pass(doc, zd, wzT, w, False, None, False, "lax_recip")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("backend", ["auto", "sparse"])
+def test_input_formats_give_the_same_bits(cuda, backend):
+    """What the input checks admit reaches the kernels unchanged: a bool
+    matrix fits and transforms as the same 0/1 counts in uint8, and CSC, COO
+    and ``csr_array`` as CSR, bit for bit, dense (kernels #1 and #2) and
+    sparse (#8 and #9); a rejected input raises before any launch."""
+    import scipy.sparse as sp
+
+    from enstop_torch.ops import _build
+    from enstop_torch.synthetic import synthetic_corpus
+
+    X, _ = synthetic_corpus(n_docs=300, n_words=700, n_topics=8, seed=2)
+    X = sp.csr_matrix(X).astype(np.int64)
+    kw = dict(n_components=8, n_iter=30, tolerance=0, random_state=0, backend=backend)
+
+    def fit(convert):
+        model = enstop_torch.PLSA(**kw).fit(convert(X))
+        return model, (model.components_, model.embedding_, model.history_,
+                       model.transform(convert(X[:50])))
+
+    def same(a, b):
+        for got, want in zip(a, b):
+            np.testing.assert_array_equal(got, want)
+
+    before = dict(cuda_em.LAUNCHES)
+    model, as_uint8 = fit(lambda a: (a > 0).astype(np.uint8))
+    keys = ("em",) if backend == "auto" else ("doc_pass", "doc_pass_thresh")
+    assert sum(cuda_em.LAUNCHES[k] - before[k] for k in keys) > 0
+    same(fit(lambda a: a > 0)[1], as_uint8)
+    csr = fit(lambda a: a)[1]
+    for convert in (sp.csc_matrix, sp.coo_matrix, sp.csr_array):
+        same(fit(convert)[1], csr)
+    launches, allocated = dict(_build.LAUNCHES), torch.cuda.memory_allocated()
+    for bad in (X[:20].astype(np.complex64), sp.csr_matrix((10, 0)), X[:0],
+                X[0].toarray().ravel()):
+        with pytest.raises(ValueError):
+            enstop_torch.PLSA(**kw).fit(bad)
+        with pytest.raises(ValueError):
+            model.transform(bad)
+    assert dict(_build.LAUNCHES) == launches and torch.cuda.memory_allocated() == allocated
