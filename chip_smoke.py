@@ -90,7 +90,16 @@ launch counts set to 0 just before it and read just after:
     ``fit``, and ``transform``, refuse a complex matrix, 0 features, 0
     samples and a 1-D input with ``ValueError``, with the launch counts and
     the device's allocated bytes unchanged. It prints the host validation
-    wall of the int64 and bool corpora beside the fit walls.
+    wall of the int64 and bool corpora beside the fit walls;
+16. the 20-Newsgroups loader and scikit-learn's metadata routing (phase
+    19): (a) phase 3's corpus and labels written with
+    ``datasets.save_20newsgroups_npz`` and read back with
+    ``load_20newsgroups_counts(local_npz=...)`` give phase 3's ``PLSA.fit``
+    bit for bit, with phase 3's launches; (b) ``load_20newsgroups_counts(
+    data_home=<empty directory>)`` raises ``RuntimeError`` (no ``.npz``, and
+    no scikit-learn or no cache); (c) ``get_metadata_routing()`` and
+    ``set_fit_request()`` raise ``RuntimeError`` without scikit-learn loaded.
+    (b) and (c) change no launch count and no allocated byte.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -1300,12 +1309,13 @@ def same_fit(a, b):
                for f in ("components_", "embedding_", "history_"))
 
 
-def raises_value_error(call):
-    """True if ``call()`` raises ``ValueError``; any other error propagates."""
+def raises(call, error, words=""):
+    """True if ``call()`` raises ``error`` with ``words`` in its message; any
+    other error propagates."""
     try:
         call()
-    except ValueError:
-        return True
+    except error as err:
+        return words in str(err)
     return False
 
 
@@ -1370,10 +1380,10 @@ def contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals):
     launches, allocated = dict(_build.LAUNCHES), torch.cuda.memory_allocated()
     for cls in estimators:
         for label, data in bad.items():
-            check(raises_value_error(lambda: cls(n_components=20).fit(data)),
+            check(raises(lambda: cls(n_components=20).fit(data), ValueError),
                   f"{cls.__name__}.fit refuses {label} input with ValueError")
     for label, data in bad.items():
-        check(raises_value_error(lambda: model.transform(data)),
+        check(raises(lambda: model.transform(data), ValueError),
               f"PLSA.transform refuses {label} input with ValueError")
     torch.cuda.synchronize()
     check(dict(_build.LAUNCHES) == launches, "the refused inputs launched no kernel")
@@ -1388,6 +1398,65 @@ def contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals):
           f"{object_transform_s:.2f} s; bool = uint8, csc = coo = csr_array = csr bit for bit; "
           f"{len(estimators)} estimators x {len(bad)} refused inputs, and transform: no "
           f"launch, no allocation; phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, totals):
+    """Phase 19 at 20NG, k = 20: the loader's ``.npz`` source feeds phase 3's
+    fit unchanged, and what needs scikit-learn (the loader's second source,
+    metadata routing) raises before any launch or device allocation."""
+    import os
+    import tempfile
+
+    import enstop_torch
+    from enstop_torch import datasets
+    from enstop_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    os.environ.pop(datasets.NPZ_ENV_VAR, None)  # (b) must find no bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the corpus through the .npz bundle
+        path = Path(tmp) / "20ng.npz"
+        t0 = time.perf_counter()
+        datasets.save_20newsgroups_npz(path, X, labels)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, loaded_labels, vocabulary = datasets.load_20newsgroups_counts(local_npz=str(path))
+        load_s = time.perf_counter() - t0
+        check(all(np.array_equal(getattr(loaded, a), getattr(X, a))
+                  for a in ("data", "indices", "indptr")) and loaded.shape == X.shape
+              and np.array_equal(loaded_labels, labels) and vocabulary is None,
+              "the .npz bundle gives back phase 3's corpus and labels")
+        reset_counts(cuda_em, em)
+        t0 = time.perf_counter()
+        fitted = enstop_torch.PLSA(n_components=20, n_iter=100, n_iter_per_test=10,
+                                   tolerance=0, random_state=0, device="cuda").fit(loaded)
+        fit_s = time.perf_counter() - t0
+        launches = read_counts("phase 19 (a) PLSA.fit on the loaded corpus", ("em", "word_pass"),
+                               cuda_em, em, totals)
+        check(launches == fit_launches, "the loaded corpus's fit launched as phase 3's fit")
+        check(same_fit(fitted, model), "the loaded corpus's fit is phase 3's bit for bit")
+
+        # (b) no source, (c) routing: both raise, launching and allocating nothing
+        empty = Path(tmp) / "empty"
+        empty.mkdir()
+        torch.cuda.synchronize()
+        before, allocated = dict(_build.LAUNCHES), torch.cuda.memory_allocated()
+        check(raises(lambda: datasets.load_20newsgroups_counts(data_home=str(empty)),
+                     RuntimeError, "data_home="),
+              "load_20newsgroups_counts(data_home=<empty directory>) raises RuntimeError")
+        for name, call in (("get_metadata_routing()", model.get_metadata_routing),
+                           ("set_fit_request()",
+                            lambda: model.set_fit_request(sample_weight=True))):
+            check(raises(call, RuntimeError, "scikit-learn is not loaded"),
+                  f"{name} raises RuntimeError without scikit-learn loaded")
+        torch.cuda.synchronize()
+        check(dict(_build.LAUNCHES) == before, "(b) and (c) launched no kernel")
+        check(torch.cuda.memory_allocated() == allocated, "(b) and (c) allocated no device memory")
+    print(f"phase 19 loader and routing at 20NG on {smi}: .npz bundle written in {save_s:.3f} s, "
+          f"read in {load_s:.3f} s; PLSA.fit on it {fit_s:.3f} s wall, phase 3's bits and "
+          f"launches; no-source load, get_metadata_routing and set_fit_request raise "
+          f"RuntimeError with no launch and no allocation; phase 19 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -1461,7 +1530,7 @@ def main():
     compare_kernels("small 203x650 k=20", torch.from_numpy(small).to(dev), 20, cuda_em, em)
 
     t0 = time.perf_counter()
-    X, _labels = twenty_newsgroups_shape(seed=0)
+    X, labels = twenty_newsgroups_shape(seed=0)
     print(f"corpus: {X.shape[0]} x {X.shape[1]}, nnz {X.nnz}, "
           f"made in {time.perf_counter() - t0:.2f} s")
     prep = enstop_torch.prepare_counts(X, device=dev)
@@ -2022,6 +2091,7 @@ def main():
     for table, part in zip((worst, timing, bounds), ratio_phase(Xd, prep, cprep, totals)):
         table.update(part)
     contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals)
+    loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -1,7 +1,7 @@
 """Shared estimator machinery (counterpart of ``enstop_tpu/models/base.py``,
 written without scikit-learn): corpus validation, zero-row handling, the
-constructor-signature ``get_params`` and ``.npz`` checkpoints in the JAX
-package's format."""
+constructor-signature ``get_params``, scikit-learn's metadata routing and
+``.npz`` checkpoints in the JAX package's format."""
 
 from __future__ import annotations
 
@@ -146,12 +146,81 @@ def reinsert_zero_rows(embedding, good_rows, n_rows, k):
     return out
 
 
+def _sklearn_module(name, caller):
+    """The loaded scikit-learn module ``name``, for the hooks that only
+    scikit-learn calls. The port imports no scikit-learn: without it loaded,
+    ``caller`` cannot answer and says so."""
+    module = sys.modules.get(name)
+    if module is None:
+        raise RuntimeError(f"{caller} is scikit-learn's API ({name}); scikit-learn is not "
+                           "loaded")
+    return module
+
+
+# scikit-learn's SIMPLE_METHODS: the methods whose metadata a router can route
+_ROUTED_METHODS = ("fit", "partial_fit", "predict", "predict_proba", "predict_log_proba",
+                   "decision_function", "score", "split", "transform", "inverse_transform")
+_NOT_METADATA = ("X", "y", "Y", "Xt", "yt")
+_UNCHANGED = "$UNCHANGED$"  # scikit-learn's default of a set_*_request argument
+_ROUTING = "sklearn.utils._metadata_requests"
+
+
+def _metadata_of(cls, method):
+    """The metadata ``cls.method`` takes, as scikit-learn reads them off its
+    signature: the named parameters after ``self`` other than the data."""
+    fn = getattr(cls, method, None)
+    if not inspect.isfunction(fn):
+        return []
+    return [p.name for p in list(inspect.signature(fn).parameters.values())[1:]
+            if p.name not in _NOT_METADATA and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+class _RequestMethod:
+    """``set_{method}_request``, as scikit-learn's ``RequestMethod`` descriptor
+    builds it on a ``BaseEstimator``: keyword-only ``keys``, the loaded
+    scikit-learn's checks and wording, ``self`` returned."""
+
+    def __init__(self, method, keys):
+        self.method, self.keys = method, keys
+
+    def __get__(self, instance, owner):
+        method, keys = self.method, self.keys
+
+        def request(*args, **kwargs):
+            routing = _sklearn_module(_ROUTING, f"set_{method}_request")
+            return routing.RequestMethod(method, keys).__get__(instance, owner)(*args, **kwargs)
+
+        request.__name__ = request.__qualname__ = f"set_{method}_request"
+        request.__doc__ = (f"Request (True), refuse (False), leave unset (None) or alias (a "
+                           f"string) each of {keys} for ``{method}`` under scikit-learn's "
+                           "metadata routing; returns the estimator.")
+        request.__signature__ = inspect.Signature(
+            [inspect.Parameter("self", inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+            + [inspect.Parameter(key, inspect.Parameter.KEYWORD_ONLY, default=_UNCHANGED)
+               for key in keys])
+        return request
+
+
+def _add_request_methods(cls):
+    """Give ``cls`` a ``set_{method}_request`` for each routed method that
+    takes metadata, as scikit-learn's ``_MetadataRequester.__init_subclass__``
+    gives a ``BaseEstimator``."""
+    for method in _ROUTED_METHODS:
+        keys = _metadata_of(cls, method)
+        if keys:
+            setattr(cls, f"set_{method}_request", _RequestMethod(method, sorted(keys)))
+
+
 class TopicModelBase:
-    """Fit plumbing and checkpointing.
+    """Fit plumbing, metadata routing and checkpointing.
 
     Fitted attributes: ``components_`` (k, n_words), ``embedding_``
     (n_docs, k), ``training_data_``.
     """
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _add_request_methods(cls)
 
     @classmethod
     def _param_names(cls):
@@ -178,16 +247,40 @@ class TopicModelBase:
         self.fit_transform(X, sample_weight=sample_weight, **fit_params)
         return self
 
+    def fit_transform(self, X, y=None, **fit_params):
+        """``fit`` then ``transform`` of ``X``, as scikit-learn's
+        ``TransformerMixin``; each estimator overrides it with a fit that
+        embeds in one pass."""
+        return self.fit(X, y, **fit_params).transform(X)
+
+    # -- scikit-learn's metadata routing ------------------------------------------
+    # The JAX package's estimators inherit it from BaseEstimator. Here the
+    # requests live in the same attribute (``_metadata_request``, which
+    # sklearn.base.clone copies) and the MetadataRequest objects are the loaded
+    # scikit-learn's, as routers deep-copy and read them.
+
+    def _get_metadata_request(self):
+        routing = _sklearn_module(_ROUTING, "get_metadata_routing")
+        if hasattr(self, "_metadata_request"):
+            return routing.get_routing_for_object(self._metadata_request)
+        requests = routing.MetadataRequest(owner=self)
+        for method in _ROUTED_METHODS:
+            for key in _metadata_of(type(self), method):
+                getattr(requests, method).add_request(param=key, alias=None)
+        return requests
+
+    def get_metadata_routing(self):
+        """scikit-learn's ``MetadataRequest`` of this estimator: which
+        metadata each method takes and whether a router passes it on."""
+        return self._get_metadata_request()
+
     def __sklearn_tags__(self):
         """The JAX package's scikit-learn tags (those of a ``TransformerMixin,
         BaseEstimator`` with counts-only sparse input, a refit ``transform``
         and float32 factors). Only scikit-learn's ``get_tags`` calls this, so
         the tag classes come from its loaded module; the port imports no
         scikit-learn."""
-        tags = sys.modules.get("sklearn.utils._tags")
-        if tags is None:
-            raise RuntimeError("__sklearn_tags__ is scikit-learn's hook (sklearn.utils.get_tags); "
-                               "scikit-learn is not loaded")
+        tags = _sklearn_module("sklearn.utils._tags", "__sklearn_tags__")
         return tags.Tags(
             estimator_type=None,
             target_tags=tags.TargetTags(required=False),
@@ -318,6 +411,9 @@ class TopicModelBase:
         """Mean (or one topic's) log lift of the fitted topics against
         ``data``, by default the stored ``training_data_``."""
         return self._metric(mean_log_lift, log_lift, topic_num, n_words, data)
+
+
+_add_request_methods(TopicModelBase)
 
 
 def _estimator_class(name):

@@ -19,11 +19,20 @@ The counterpart of ``tests/test_estimator_contract.py``:
   side and numpy on the other, so only their shapes are compared with JAX;
   the port's own fit of such an input is then held bit for bit to its fit of
   the same counts in a plain dtype.
+* scikit-learn's metadata routing side by side: ``get_metadata_routing()``
+  serialises as JAX's before and after each ``set_*_request``; the request
+  methods raise JAX's errors, with routing disabled and on a misspelt key;
+  a ``Pipeline`` that routes ``sample_weight`` gives the port's direct
+  weighted fit bit for bit and JAX's routed fit within ``FACTOR_TOL`` (the
+  ensembles raise JAX's ``TypeError``); and the battery above runs again with
+  routing enabled.
 * the port without scikit-learn: a subprocess in which ``import sklearn``
-  fails fits, transforms, saves and loads.
+  fails fits, transforms, saves and loads; there the routing methods and the
+  loader's scikit-learn source raise ``RuntimeError``.
 """
 
 import pathlib
+import pickle
 import subprocess
 import sys
 import warnings
@@ -31,8 +40,10 @@ import warnings
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import sklearn
 import torch
 from sklearn.base import clone
+from sklearn.pipeline import Pipeline
 from sklearn.utils import get_tags
 from sklearn.utils.estimator_checks import parametrize_with_checks
 
@@ -98,8 +109,7 @@ ENSEMBLE_EXPECTED = {
 }
 
 
-@parametrize_with_checks(BATTERY)
-def test_sklearn_check_battery(estimator, check):
+def _run_check(estimator, check):
     name = getattr(check, "func", check).__name__
     expected = (ENSEMBLE_EXPECTED if isinstance(estimator, enstop_torch.EnsembleTopics)
                 else PLSA_EXPECTED).get(name)
@@ -110,6 +120,19 @@ def test_sklearn_check_battery(estimator, check):
         else:
             with pytest.raises(expected[0], match=expected[1]):
                 check(estimator)
+
+
+@parametrize_with_checks(BATTERY)
+def test_sklearn_check_battery(estimator, check):
+    _run_check(estimator, check)
+
+
+@parametrize_with_checks(BATTERY)
+def test_sklearn_check_battery_with_routing(estimator, check):
+    """The battery with metadata routing enabled, where the JAX estimators
+    fail the same checks as without it."""
+    with sklearn.config_context(enable_metadata_routing=True):
+        _run_check(estimator, check)
 
 
 def test_tags_are_jax_tags():
@@ -413,6 +436,101 @@ def test_zero_features_fail_in_validation(est, monkeypatch):
         ESTIMATORS[est][1](**EST_KW).fit(np.zeros((10, 0)))
 
 
+# -- scikit-learn's metadata routing, side by side with JAX -------------------
+
+
+def _serialized(model):
+    return model.get_metadata_routing()._serialize()
+
+
+def _request_methods(model):
+    return [name for name in dir(model) if name.startswith("set_") and name.endswith("_request")
+            and hasattr(model, name)]
+
+
+@pytest.mark.parametrize("est", list(ESTIMATORS))
+def test_metadata_routing_matches_jax(est):
+    """The same requests serialise the same before and after each
+    ``set_*_request``, which returns the estimator; ``clone`` and pickling
+    keep them and ``get_params`` does not hold them."""
+    make_ref, make_port = ESTIMATORS[est]
+    ref, port = make_ref(**EST_KW), make_port(**EST_KW)
+    assert _request_methods(port) == _request_methods(ref) == (
+        ["set_fit_request", "set_transform_request"] if est == "StreamedPLSA"
+        else ["set_fit_request"])
+    with sklearn.config_context(enable_metadata_routing=True):
+        assert type(port.get_metadata_routing()) is type(ref.get_metadata_routing())
+        assert _serialized(port) == _serialized(ref)
+        for method in [name[4:-8] for name in _request_methods(ref)]:
+            for value in (True, "w", False, None):
+                for model in (ref, port):
+                    assert getattr(model, f"set_{method}_request")(sample_weight=value) is model
+                assert _serialized(port) == _serialized(ref), (method, value)
+            for model in (ref, port):
+                getattr(model, f"set_{method}_request")(sample_weight="w")
+        assert _serialized(port) == _serialized(ref)
+        for call in (lambda model: model.set_fit_request(sampel_weight=True),
+                     lambda model: model.set_fit_request(True)):
+            ref_err, port_err = _outcome(lambda: call(ref)), _outcome(lambda: call(port))
+            assert ref_err[0] == "raised"
+            _assert_same_outcome(ref_err, port_err, "set_fit_request")
+        assert _serialized(clone(port)) == _serialized(ref)
+        assert _serialized(pickle.loads(pickle.dumps(port))) == _serialized(ref)
+        assert "_metadata_request" not in port.get_params()
+
+
+@pytest.mark.parametrize("est", list(ESTIMATORS))
+def test_request_methods_refuse_without_routing(est):
+    """With routing disabled every ``set_*_request`` raises JAX's
+    ``RuntimeError`` with its message."""
+    make_ref, make_port = ESTIMATORS[est]
+    ref, port = make_ref(**EST_KW), make_port(**EST_KW)
+    with sklearn.config_context(enable_metadata_routing=False):
+        for name in _request_methods(ref):
+            ref_err = _outcome(lambda: getattr(ref, name)(sample_weight=True))
+            port_err = _outcome(lambda: getattr(port, name)(sample_weight=True))
+            assert ref_err[0] == port_err[0] == "raised"
+            assert type(port_err[1]) is type(ref_err[1]) is RuntimeError
+            assert str(port_err[1]) == str(ref_err[1])
+
+
+@pytest.mark.parametrize("est", list(ESTIMATORS))
+def test_pipeline_routes_sample_weight(est, tmp_path):
+    """``Pipeline.fit_transform(X, sample_weight=w)`` with the weights
+    requested: the pLSA estimators give the port's direct ``fit(X,
+    sample_weight=w)`` bit for bit and JAX's routed fit within
+    ``FACTOR_TOL``, and a fitted model with requests saves and loads; the
+    ensembles raise JAX's ``TypeError``."""
+    make_ref, make_port = ESTIMATORS[est]
+    C = _counts()
+    w = np.random.RandomState(3).uniform(0.5, 2.0, C.shape[0])
+
+    def routed(make):
+        model = make(**EST_KW).set_fit_request(sample_weight=True)
+        if hasattr(model, "set_transform_request"):
+            model.set_transform_request(sample_weight=True)
+        return _outcome(lambda: (Pipeline([("topics", model)]).fit_transform(
+            C, sample_weight=w), model))
+
+    with sklearn.config_context(enable_metadata_routing=True):
+        ref, port = routed(make_ref), routed(make_port)
+    assert ref[0] == port[0]
+    if ref[0] == "raised":
+        assert est.startswith("Ensemble")
+        assert type(port[1]) is type(ref[1]) is TypeError
+        assert str(port[1]) == str(ref[1])
+        return
+    (embedding, model), (_, ref_model) = port[1], ref[1]
+    direct = make_port(**EST_KW).fit(C, sample_weight=w)
+    np.testing.assert_array_equal(embedding, direct.embedding_)
+    np.testing.assert_array_equal(model.components_, direct.components_)
+    np.testing.assert_allclose(model.embedding_, ref_model.embedding_, **FACTOR_TOL)
+    np.testing.assert_allclose(model.components_, ref_model.components_, **FACTOR_TOL)
+    model.save(tmp_path / "routed.npz")
+    loaded = type(model).load(tmp_path / "routed.npz")
+    np.testing.assert_array_equal(loaded.components_, model.components_)
+
+
 # -- the port without scikit-learn --------------------------------------------
 
 NO_SKLEARN = """
@@ -420,6 +538,7 @@ import sys
 sys.modules["sklearn"] = None  # any import of scikit-learn now fails
 import numpy as np, scipy.sparse as sp
 import enstop_torch
+import enstop_torch.datasets
 from enstop_torch.models.base import TopicModelBase
 try:
     import sklearn
@@ -448,11 +567,22 @@ for model in (enstop_torch.PLSA(n_components=3, n_iter=10, random_state=0, devic
         raise SystemExit("tags without scikit-learn")
     except RuntimeError as err:
         assert "scikit-learn is not loaded" in str(err)
+    for call in (model.get_metadata_routing, lambda: model.set_fit_request(sample_weight=True)):
+        try:
+            call()
+            raise SystemExit("metadata routing without scikit-learn")
+        except RuntimeError as err:
+            assert "scikit-learn is not loaded" in str(err)
     try:
         model.fit(np.zeros((10, 0)))
         raise SystemExit("a 10 x 0 matrix fitted")
     except ValueError:
         pass
+try:
+    enstop_torch.datasets.load_20newsgroups_counts(data_home=sys.argv[1])
+    raise SystemExit("20-Newsgroups loaded without a source")
+except RuntimeError:
+    pass
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "enstop_tpu")
              or (m.startswith("sklearn") and sys.modules[m] is not None))
 print(bad)
@@ -462,7 +592,8 @@ print(bad)
 def test_port_runs_without_sklearn(tmp_path):
     """The card's machine has no scikit-learn: there ``import enstop_torch``,
     fit, transform, ``get_params``/``set_params``, save and load work for
-    ``PLSA`` and ``EnsembleTopics``, and ``__sklearn_tags__`` says why it
+    ``PLSA`` and ``EnsembleTopics``, and ``__sklearn_tags__``, the routing
+    methods and the 20-Newsgroups loader's scikit-learn source say why they
     cannot answer."""
     out = subprocess.run([sys.executable, "-S", "-c", NO_SKLEARN, str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,

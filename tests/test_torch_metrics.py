@@ -208,7 +208,60 @@ def test_datasets_npz_round_trip_and_error(tmp_path, monkeypatch):
     assert port_datasets.NPZ_ENV_VAR == "ENSTOP_TPU_20NG_NPZ"
     assert port_datasets.load_20newsgroups_counts()[0].shape == (20, 30)
     monkeypatch.setenv(port_datasets.NPZ_ENV_VAR, str(tmp_path / "missing.npz"))
+    # scikit-learn's default cache directory, empty, in place of the home directory's
+    monkeypatch.setenv("SCIKIT_LEARN_DATA", str(tmp_path / "scikit_learn_data"))
     with pytest.raises(RuntimeError, match="ENSTOP_TPU_20NG_NPZ"):
         port_datasets.load_20newsgroups_counts()
     port_datasets.save_20newsgroups_npz(tmp_path / "bare.npz", X, labels)
     assert port_datasets.load_20newsgroups_counts(str(tmp_path / "bare.npz"))[2] is None
+
+
+def _newsgroups_bunch(n_docs=40, seed=0):
+    """A small fixed stand-in for scikit-learn's 20-Newsgroups bunch: words
+    drawn from a 12-word vocabulary and three English stop words."""
+    from sklearn.utils import Bunch
+
+    rng = np.random.RandomState(seed)
+    words = np.array([f"topic{i}" for i in range(12)] + ["the", "and", "of"])
+    data = [" ".join(rng.choice(words, size=rng.randint(3, 15))) for _ in range(n_docs)]
+    return Bunch(data=data, target=rng.randint(0, 20, n_docs))
+
+
+@pytest.mark.parametrize("vectorizer", [{}, {"min_df": 1, "stop_words": None}],
+                         ids=["notebook", "all_words"])
+def test_datasets_sklearn_cache_matches_jax(tmp_path, monkeypatch, vectorizer):
+    """With no ``.npz``, both loaders read scikit-learn's cache in
+    ``data_home`` (``fetch_20newsgroups``, monkeypatched here to a fixed
+    bunch) without downloading, and vectorise it to the same CSR arrays,
+    labels and vocabulary; with neither source both raise ``RuntimeError``."""
+    import sklearn.datasets
+
+    from enstop_tpu import datasets as jax_datasets
+
+    calls = []
+
+    def fetch(subset, data_home, download_if_missing):
+        calls.append((subset, data_home, download_if_missing))
+        if data_home == str(tmp_path / "empty"):
+            raise OSError("20Newsgroups dataset not found and download_if_missing is False")
+        return _newsgroups_bunch()
+
+    monkeypatch.delenv(port_datasets.NPZ_ENV_VAR, raising=False)
+    monkeypatch.setattr(sklearn.datasets, "fetch_20newsgroups", fetch)
+    home = str(tmp_path / "cache")
+    port = port_datasets.load_20newsgroups_counts(data_home=home, **vectorizer)
+    ref = jax_datasets.load_20newsgroups_counts(data_home=home, **vectorizer)
+    assert calls == [("all", home, False)] * 2
+    assert sp.isspmatrix_csr(port[0]) and port[0].shape == ref[0].shape
+    assert port[0].shape[1] == (15 if vectorizer else 12)
+    for attr in ("data", "indices", "indptr"):
+        np.testing.assert_array_equal(getattr(port[0], attr), getattr(ref[0], attr))
+    np.testing.assert_array_equal(port[1], ref[1])
+    np.testing.assert_array_equal(port[2], ref[2])
+    missing = port_datasets.load_20newsgroups_counts(local_npz=str(tmp_path / "none.npz"),
+                                                     data_home=home, **vectorizer)
+    assert (missing[0] != port[0]).nnz == 0
+    for loader in (port_datasets.load_20newsgroups_counts,
+                   jax_datasets.load_20newsgroups_counts):
+        with pytest.raises(RuntimeError, match="data_home="):
+            loader(data_home=str(tmp_path / "empty"), **vectorizer)
