@@ -1,0 +1,11 @@
+"""Mean ms of a fit's ``stage`` span: the corpus's COO on the host, its copy
+to the device, the layout built there and the document weights, on the
+program's clock (``fit_info_["trace"]``). None where no fit kept a trace."""
+
+
+def read(rec):
+    traces = [info["trace"] for info in rec.infos if info and "trace" in info]
+    if not traces:
+        return None
+    return 1e3 * sum(s["end"] - s["start"] for t in traces for s in t["spans"]
+                     if s["name"] == "stage") / len(traces)

@@ -38,7 +38,6 @@ depend on its block, so the stack is the same for any number of shards.
 
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
@@ -58,6 +57,7 @@ from ..ops.init import plsa_init
 from ..ops.nmf import nmf_cd, nmf_fit_mu
 from ..ops.sell import PreparedSell, prepare_sell, sell_fit
 from ..parallel import mesh as mesh_lib
+from ..profiling import request, span
 from ..utils import _check_sample_weight, check_random_state, normalized
 from .base import TopicModelBase, check_counts
 
@@ -565,9 +565,11 @@ def ensemble_fit(
 ):
     """Full ensemble pipeline; returns ``(doc_vectors, stable_topics)`` as numpy.
 
-    Stage wall times land in ``ensemble_fit.last_timings`` (``staging_s``,
-    ``runs_s``, ``combine_s``, ``refit_s``); each stage ends with a device
-    synchronise, so a stage's time holds its own device work.
+    The call is a request ``ensemble`` (:mod:`enstop_torch.profiling`) with
+    the spans ``staging``, ``runs``, ``combine`` and ``refit``, whose lengths
+    land in ``ensemble_fit.last_timings`` (``staging_s``, ``runs_s``,
+    ``combine_s``, ``refit_s``); each stage ends waiting for the device, so
+    a stage's time holds its own device work.
 
     ``precision``: the bootstrap fits' and the final refit's (``"default"``,
     ``"highest"`` or ``"fast"``, see :func:`~enstop_torch.ops.driver.plsa_fit`).
@@ -594,97 +596,95 @@ def ensemble_fit(
     if topic_combination not in _topic_combiner:
         raise ValueError(f"topic_combination must be one of {tuple(_topic_combiner)}")
 
-    timings = {}
-    t0 = time.perf_counter()
-    is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
-    devices = _run_devices(devices, device, X if is_prepared else None)
-    parallelism = resolve_parallelism(parallelism, model, backend, n_starts,
-                                      X if is_prepared else None, devices)
-    if is_prepared:
-        prepared, X = X, None
-        if model != "plsa" or parallelism not in ("weights", "sharded"):
-            raise ValueError("Prepared input requires model='plsa' and parallelism='weights' "
-                             "or 'sharded'")
-        dev = (prepared.device if isinstance(prepared, PreparedSell)
-               else prepared.device_array.device)
-    else:
-        # raw float32 counts, not l1-normalised: the ensemble fits the counts
-        X = check_counts(X, dtype=np.float32)
-        dev = resolve_device(device)
-        prepared = None
-        if model == "plsa" and parallelism == "weights" and backend == "sparse":
-            prepared = prepare_sell(X, standardize=False, device=dev)
-        elif model == "plsa" and parallelism in ("weights", "sharded"):
-            prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
-                                      standardize=False, device=dev)
-    _sync(dev)
-    timings["staging_s"] = time.perf_counter() - t0
+    with request("ensemble", model=model, n_starts=n_starts):
+        with span("staging") as staging:
+            is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
+            devices = _run_devices(devices, device, X if is_prepared else None)
+            parallelism = resolve_parallelism(parallelism, model, backend, n_starts,
+                                              X if is_prepared else None, devices)
+            if is_prepared:
+                prepared, X = X, None
+                if model != "plsa" or parallelism not in ("weights", "sharded"):
+                    raise ValueError("Prepared input requires model='plsa' and "
+                                     "parallelism='weights' or 'sharded'")
+                dev = (prepared.device if isinstance(prepared, PreparedSell)
+                       else prepared.device_array.device)
+            else:
+                # raw float32 counts, not l1-normalised: the ensemble fits the counts
+                X = check_counts(X, dtype=np.float32)
+                dev = resolve_device(device)
+                prepared = None
+                if model == "plsa" and parallelism == "weights" and backend == "sparse":
+                    prepared = prepare_sell(X, standardize=False, device=dev)
+                elif model == "plsa" and parallelism in ("weights", "sharded"):
+                    prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
+                                              standardize=False, device=dev)
+            _sync(dev)
 
-    t0 = time.perf_counter()
-    all_topics = _ensemble_of_topics_device(
-        X,
-        estimated_n_topics,
-        model=model,
-        n_jobs=n_jobs,
-        n_runs=n_starts,
-        parallelism=parallelism,
-        init=init,
-        n_iter=n_iter,
-        n_iter_per_test=n_iter_per_test,
-        tolerance=tolerance,
-        e_step_thresh=e_step_thresh,
-        bootstrap=bootstrap,
-        beta_loss=beta_loss,
-        alpha=alpha,
-        solver=solver,
-        random_state=random_state,
-        backend=backend,
-        x_dtype=x_dtype,
-        precision=precision,
-        prepared=prepared,
-        device=dev,
-        devices=devices,
-    )
-    if dev.type == "cuda" and not isinstance(all_topics, torch.Tensor):
-        # a stack fitted run by run comes back as numpy: the combine stage
-        # runs on the card all the same
-        all_topics = torch.from_numpy(all_topics).to(dev)
-    _sync(dev)
-    timings["runs_s"] = time.perf_counter() - t0
+        with span("runs") as runs:
+            all_topics = _ensemble_of_topics_device(
+                X,
+                estimated_n_topics,
+                model=model,
+                n_jobs=n_jobs,
+                n_runs=n_starts,
+                parallelism=parallelism,
+                init=init,
+                n_iter=n_iter,
+                n_iter_per_test=n_iter_per_test,
+                tolerance=tolerance,
+                e_step_thresh=e_step_thresh,
+                bootstrap=bootstrap,
+                beta_loss=beta_loss,
+                alpha=alpha,
+                solver=solver,
+                random_state=random_state,
+                backend=backend,
+                x_dtype=x_dtype,
+                precision=precision,
+                prepared=prepared,
+                device=dev,
+                devices=devices,
+            )
+            if dev.type == "cuda" and not isinstance(all_topics, torch.Tensor):
+                # a stack fitted run by run comes back as numpy: the combine stage
+                # runs on the card all the same
+                all_topics = torch.from_numpy(all_topics).to(dev)
+            _sync(dev)
 
-    t0 = time.perf_counter()
-    cluster_topics = _topic_combiner[topic_combination]
-    if topic_combination == "hellinger_umap":
-        stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
-                                       random_state=random_state, device=dev)
-    else:
-        stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size, device=dev)
-    timings["combine_s"] = time.perf_counter() - t0
+        with span("combine") as combine:
+            cluster_topics = _topic_combiner[topic_combination]
+            if topic_combination == "hellinger_umap":
+                stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
+                                               random_state=random_state, device=dev)
+            else:
+                stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
+                                               device=dev)
 
-    if lift_factor != 1:
-        stable_topics = stable_topics ** lift_factor
-        stable_topics /= stable_topics.sum(axis=1, keepdims=True)
+        if lift_factor != 1:
+            stable_topics = stable_topics ** lift_factor
+            stable_topics /= stable_topics.sum(axis=1, keepdims=True)
 
-    t0 = time.perf_counter()
-    if model == "nmf":
-        doc_vectors, _ = nmf_fit_mu(X, stable_topics.shape[0], beta_loss=beta_loss,
-                                    H_init=stable_topics, update_H=False,
-                                    random_state=random_state, device=dev)
-    else:
-        refit_input = prepared if prepared is not None else X
-        doc_vectors = plsa_refit(
-            refit_input,
-            stable_topics,
-            sample_weight=_check_sample_weight(None, refit_input, dtype=np.float32),
-            e_step_thresh=e_step_thresh,
-            random_state=random_state,
-            backend=backend,
-            precision=precision,
-            device=dev,
-        )
-    timings["refit_s"] = time.perf_counter() - t0
+        with span("refit") as refit:
+            if model == "nmf":
+                doc_vectors, _ = nmf_fit_mu(X, stable_topics.shape[0], beta_loss=beta_loss,
+                                            H_init=stable_topics, update_H=False,
+                                            random_state=random_state, device=dev)
+            else:
+                refit_input = prepared if prepared is not None else X
+                doc_vectors = plsa_refit(
+                    refit_input,
+                    stable_topics,
+                    sample_weight=_check_sample_weight(None, refit_input, dtype=np.float32),
+                    e_step_thresh=e_step_thresh,
+                    random_state=random_state,
+                    backend=backend,
+                    precision=precision,
+                    device=dev,
+                )
 
-    ensemble_fit.last_timings = timings
+    ensemble_fit.last_timings = {"staging_s": staging.seconds, "runs_s": runs.seconds,
+                                 "combine_s": combine.seconds, "refit_s": refit.seconds}
     return doc_vectors, stable_topics
 
 

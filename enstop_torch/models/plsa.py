@@ -14,6 +14,7 @@ import numpy as np
 
 from ..ops.driver import PreparedCounts, plsa_fit, plsa_refit
 from ..ops.sell import PreparedSell
+from ..profiling import request, span
 from ..utils import _check_sample_weight, check_random_state
 from .base import (TopicModelBase, check_counts, reinsert_zero_rows, split_zero_rows,
                    validate_corpus)
@@ -79,50 +80,58 @@ class PLSA(TopicModelBase):
         :class:`~enstop_torch.ops.driver.PreparedCounts` or a
         :class:`~enstop_torch.ops.sell.PreparedSell`; for the two prepared
         kinds validation and zero-row handling are skipped (zero rows come
-        back as zero embeddings) and ``training_data_`` is None.
+        back as zero embeddings) and ``training_data_`` is None. The fit is
+        a request ``fit`` (:mod:`enstop_torch.profiling`) whose record is
+        kept as ``fit_info_["trace"]``.
         """
-        if isinstance(X, (PreparedCounts, PreparedSell)):
-            sample_weight = _check_sample_weight(sample_weight, X, dtype=np.float32)
-            U, V, info = plsa_fit(X, self.n_components, sample_weight=sample_weight,
-                                  **self._fit_args())
-            self.embedding_, self.components_ = U, V
-            self.training_data_ = None
-            self._record(info)
-            return self.embedding_
-
-        X, sample_weight = validate_corpus(X, sample_weight)
-        data_for_fitting, good_rows, zero_rows_found = split_zero_rows(X)
-        U, V, info = plsa_fit(
-            data_for_fitting,
-            self.n_components,
-            sample_weight=sample_weight[good_rows] if zero_rows_found else sample_weight,
-            **self._fit_args(),
-        )
-        self._record(info)
-        if zero_rows_found:
-            self.embedding_ = reinsert_zero_rows(U, good_rows, X.shape[0], self.n_components)
-        else:
-            self.embedding_ = U
-        self.components_ = V
-        self.training_data_ = X
+        with request("fit", estimator=type(self).__name__, backend=self.backend) as req:
+            info = self._fit(X, sample_weight)
+        info["trace"] = req.record
         return self.embedding_
+
+    def _fit(self, X, sample_weight):
+        """The fit's spans ``validate``, then those of ``plsa_fit``, then
+        ``finish``; returns the info dict."""
+        prepared = isinstance(X, (PreparedCounts, PreparedSell))
+        with span("validate"):
+            if prepared:
+                sample_weight = _check_sample_weight(sample_weight, X, dtype=np.float32)
+                data, zero_rows_found = X, False
+            else:
+                X, sample_weight = validate_corpus(X, sample_weight)
+                data, good_rows, zero_rows_found = split_zero_rows(X)
+                if zero_rows_found:
+                    sample_weight = sample_weight[good_rows]
+        U, V, info = plsa_fit(data, self.n_components, sample_weight=sample_weight,
+                              **self._fit_args())
+        with span("finish"):
+            self._record(info)
+            if zero_rows_found:
+                U = reinsert_zero_rows(U, good_rows, X.shape[0], self.n_components)
+            self.embedding_, self.components_ = U, V
+            self.training_data_ = None if prepared else X
+        return info
 
     def transform(self, X, y=None):
         """Embed new documents against the fitted topics (a refit of
-        ``P(z|d)`` only: 50 iterations, a test every 5, tolerance 1e-3)."""
-        X = check_counts(X)
-        self._validate_transform_input(X)
-        random_state = check_random_state(self.transform_random_seed)
-        sample_weight = _check_sample_weight(None, X, dtype=np.float32)
-        return plsa_refit(
-            X,
-            self.components_,
-            sample_weight=sample_weight,
-            n_iter=50,
-            n_iter_per_test=5,
-            tolerance=0.001,
-            random_state=random_state,
-            backend=self.backend,
-            precision=self.precision,
-            device=self.device,
-        )
+        ``P(z|d)`` only: 50 iterations, a test every 5, tolerance 1e-3). A
+        request ``transform`` that only a running profiler sees: no fitted
+        attribute changes here."""
+        with request("transform", estimator=type(self).__name__, backend=self.backend):
+            with span("validate"):
+                X = check_counts(X)
+                self._validate_transform_input(X)
+                random_state = check_random_state(self.transform_random_seed)
+                sample_weight = _check_sample_weight(None, X, dtype=np.float32)
+            return plsa_refit(
+                X,
+                self.components_,
+                sample_weight=sample_weight,
+                n_iter=50,
+                n_iter_per_test=5,
+                tolerance=0.001,
+                random_state=random_state,
+                backend=self.backend,
+                precision=self.precision,
+                device=self.device,
+            )

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import count
 from ._build import LAUNCHES, library
 from .em import RATIO_MODES, ratio as _ratio
 
@@ -98,14 +99,19 @@ def build_side(owner, idx, vals, n_owner, n_index):
     below ``n_index``."""
     dev = owner.device
     counts = torch.bincount(owner, minlength=n_owner)
+    if owner.numel():
+        count("host_syncs", 2)  # bincount reads owner's min and max back
     if counts.numel() != n_owner:
         raise ValueError(f"owner ids reach {counts.numel() - 1}, beyond n_owner = {n_owner}")
-    if idx.numel() and not 0 <= int(idx.min()) <= int(idx.max()) < n_index:
-        raise ValueError(f"indices must lie in 0..{n_index - 1}")
+    if idx.numel():
+        count("host_syncs", 2)
+        if not 0 <= int(idx.min()) <= int(idx.max()) < n_index:
+            raise ValueError(f"indices must lie in 0..{n_index - 1}")
     segs = (counts + SEG_LEN - 1) // SEG_LEN
     owner_seg_ptr = torch.zeros(n_owner + 1, dtype=torch.int64, device=dev)
     torch.cumsum(segs, 0, out=owner_seg_ptr[1:])
     n_seg = int(owner_seg_ptr[-1])
+    count("host_syncs", 2)  # n_seg read back; the end offset below copied up
     seg_owner = torch.arange(n_owner, device=dev).repeat_interleave(segs, output_size=n_seg)
     first_entry = torch.cumsum(counts, 0) - counts
     within = torch.arange(n_seg, device=dev) - owner_seg_ptr[seg_owner]

@@ -15,6 +15,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..profiling import count, span
+
 __all__ = ["round_up", "pad_dense_counts", "pad_factors", "unpad_factors", "pad_vector",
            "resolve_device", "ship_coo"]
 
@@ -84,11 +86,25 @@ def resolve_device(device):
 def ship_coo(X, device):
     """The nonzeros of a (sparse or dense) matrix on ``device``: ``(rows,
     cols, vals)``, int64, int64 and float32, in row-major order, each
-    (row, col) once (duplicates summed, explicit zeros dropped)."""
-    Xc = sp.csr_matrix(X, copy=True) if sp.issparse(X) else sp.csr_matrix(np.asarray(X))
-    Xc.sum_duplicates()
-    Xc.eliminate_zeros()
-    coo = Xc.tocoo()
-    return (torch.from_numpy(coo.row.astype(np.int64)).to(device),
-            torch.from_numpy(coo.col.astype(np.int64)).to(device),
-            torch.from_numpy(coo.data.astype(np.float32)).to(device))
+    (row, col) once (duplicates summed, explicit zeros dropped). The host's
+    numpy work is in spans ``stage.coo``, each array's copy in a span
+    ``stage.copy`` of its own."""
+    with span("stage.coo"):
+        Xc = sp.csr_matrix(X, copy=True) if sp.issparse(X) else sp.csr_matrix(np.asarray(X))
+        Xc.sum_duplicates()
+        Xc.eliminate_zeros()
+        coo = Xc.tocoo()
+    return tuple(_ship(a, dtype, device) for a, dtype in
+                 ((coo.row, np.int64), (coo.col, np.int64), (coo.data, np.float32)))
+
+
+def _ship(a, dtype, device):
+    """``a`` cast on the host and copied to ``device``. Each cast array is
+    freed as soon as it is copied: casting all three first holds them at
+    once, which costs the host fresh pages on every fit (a dense fit at 20NG
+    measured 17 ms slower on an H100's host)."""
+    with span("stage.coo"):
+        a = a.astype(dtype)
+    with span("stage.copy", bytes=a.nbytes):
+        count("host_syncs")  # a copy from pageable memory waits for it
+        return torch.from_numpy(a).to(device)

@@ -21,13 +21,13 @@ sparse, whatever the threshold, as in the JAX package.
 
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..profiling import count, is_open, request, span
 from ..utils import check_random_state, standardize_input
 from . import cuda_em, em as em_ops
 from .data import (COL_MULTIPLE, ROW_MULTIPLE, pad_factors, pad_vector, resolve_device,
@@ -166,10 +166,11 @@ def _stage_dense(X, device, x_dtype):
     n_pad = round_up(max(n, 1), ROW_MULTIPLE)
     m_pad = round_up(max(m, 1), COL_MULTIPLE)
     rows, cols, vals = ship_coo(X, device)
-    vals = vals.to(x_dtype)
-    Xd = torch.zeros((n_pad, m_pad), dtype=x_dtype, device=device)
-    Xd[rows, cols] = vals
-    return Xd, n, m, word_side(rows, cols, vals, m_pad, n_pad)
+    with span("stage.layout"):
+        vals = vals.to(x_dtype)
+        Xd = torch.zeros((n_pad, m_pad), dtype=x_dtype, device=device)
+        Xd[rows, cols] = vals
+        return Xd, n, m, word_side(rows, cols, vals, m_pad, n_pad)
 
 
 class PreparedCounts:
@@ -213,7 +214,21 @@ def prepare_counts(X, backend="auto", x_dtype="auto", standardize=True, device="
 def _weights(sample_weight, n, n_pad, device):
     w = np.asarray(sample_weight, dtype=np.float32) if _weighted(sample_weight) else np.ones(
         n, np.float32)
+    count("host_syncs")  # a copy from pageable memory waits
     return torch.from_numpy(pad_vector(w, n_pad)).to(device)
+
+
+def _factors_to(zd, wz, device):
+    """The padded host factors on ``device``: two copies, each waiting."""
+    count("host_syncs", 2)
+    return torch.from_numpy(zd).to(device), torch.from_numpy(wz).to(device)
+
+
+def _read_back(*tensors):
+    """Device tensors as numpy, in the span ``readback``: each copy waits."""
+    with span("readback"):
+        count("host_syncs", len(tensors))
+        return tuple(t.cpu().numpy() for t in tensors)
 
 
 def _stage_or_reuse(X, backend, x_dtype, device):
@@ -277,7 +292,26 @@ def plsa_fit(
     The sparse path has no such mode: ``"fast"`` warns there and runs fp32.
     ``e_step_thresh`` above 1e-30 routes raw input under ``backend="auto"``
     to the sparse path, the only one that applies it (exactly).
+
+    Inside an open request (:func:`~enstop_torch.profiling.is_open`) the
+    fit's spans join it; else the fit is a request ``fit`` of its own, and
+    the info carries its record as ``"trace"`` (:mod:`enstop_torch.profiling`).
     """
+    args = (X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance, e_step_thresh,
+            random_state, backend, x_dtype, precision, device)
+    if is_open():
+        zd, wz, info = _fit(*args)
+    else:
+        with request("fit", backend=backend) as req:
+            zd, wz, info = _fit(*args)
+        info["trace"] = req.record
+    return (zd, wz, info) if return_info else (zd, wz)
+
+
+def _fit(X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance, e_step_thresh,
+         random_state, backend, x_dtype, precision, device):
+    """:func:`plsa_fit`'s ``(P(z|d), P(w|z), info)`` (spans ``stage``,
+    ``init``, ``loop``)."""
     rng = check_random_state(random_state)
     cuda_em._check_precision(precision)
     _check_prepared_init(X, init)
@@ -285,45 +319,42 @@ def plsa_fit(
         if precision == "fast":
             _warn_fast_unsupported("sparse")
         return _plsa_fit_sparse(X, k, sample_weight, init, n_iter, n_iter_per_test,
-                                tolerance, e_step_thresh, rng, return_info, device)
-    prep = _stage_or_reuse(X, backend, x_dtype, device)
-    p_z_given_d, p_w_given_z = plsa_init(X, k, init=init, rng=rng)
-    Xd = prep.device_array
-    dev = Xd.device
-    zd, wz = pad_factors(p_z_given_d, p_w_given_z, Xd.shape[0], Xd.shape[1])
-    w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
-
-    t0 = time.perf_counter()
-    res = fit_padded(Xd, torch.from_numpy(zd).to(dev), torch.from_numpy(wz).to(dev),
-                     w, n_iter, n_iter_per_test, tolerance, kernel_steps(precision, prep.word))
-    zd_f, wz_f = res.state[0].cpu().numpy(), res.state[1].cpu().numpy()  # sync
-    wall = time.perf_counter() - t0
-    zd_out, wz_out = unpad_factors(zd_f, wz_f, prep.n, prep.m, k)
-    if not return_info:
-        return zd_out, wz_out
-    return zd_out, wz_out, _info(res.n_steps, res.final_ll, res.ll_trace, res.n_tests, wall,
-                                 prep.nnz, k, prep.backend)
+                                tolerance, e_step_thresh, rng, device)
+    with span("stage"):
+        prep = _stage_or_reuse(X, backend, x_dtype, device)
+        Xd = prep.device_array
+        dev = Xd.device
+        w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
+    with span("init"):
+        p_z_given_d, p_w_given_z = plsa_init(X, k, init=init, rng=rng)
+        zd, wz = pad_factors(p_z_given_d, p_w_given_z, Xd.shape[0], Xd.shape[1])
+    with span("loop") as loop:
+        res = fit_padded(Xd, *_factors_to(zd, wz, dev), w, n_iter, n_iter_per_test,
+                         tolerance, kernel_steps(precision, prep.word))
+        zd_f, wz_f = _read_back(*res.state)
+    return (*unpad_factors(zd_f, wz_f, prep.n, prep.m, k),
+            _info(res.n_steps, res.final_ll, res.ll_trace, res.n_tests, loop.seconds, prep.nnz,
+                  k, prep.backend))
 
 
 def _plsa_fit_sparse(X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance,
-                     e_step_thresh, rng, return_info, device):
+                     e_step_thresh, rng, device):
     """The sparse-backend fit: O(nnz) memory and work, exact ``e_step_thresh``.
     Standardization is the estimators' job, as on the dense path."""
-    prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
-                                                              device=device)
-    # a data-dependent init reads the raw matrix
-    p_z_given_d, p_w_given_z = plsa_init(prep if isinstance(X, PreparedSell) else X, k,
-                                         init=init, rng=rng)
-    weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
-    t0 = time.perf_counter()
-    zd, wz, n_steps, final_ll, ll_trace, n_tests = sell_fit(
-        prep, p_z_given_d, p_w_given_z, sample_weight=weight, n_iter=n_iter,
-        n_iter_per_test=n_iter_per_test, tolerance=tolerance, e_step_thresh=e_step_thresh)
-    zd_out, wz_out = zd.cpu().numpy(), wz.cpu().numpy()  # sync
-    wall = time.perf_counter() - t0
-    if not return_info:
-        return zd_out, wz_out
-    return zd_out, wz_out, _info(n_steps, final_ll, ll_trace, n_tests, wall, prep.nnz, k,
+    with span("stage"):
+        prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
+                                                                  device=device)
+        weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
+    with span("init"):
+        # a data-dependent init reads the raw matrix
+        p_z_given_d, p_w_given_z = plsa_init(prep if isinstance(X, PreparedSell) else X, k,
+                                             init=init, rng=rng)
+    with span("loop") as loop:
+        zd, wz, n_steps, final_ll, ll_trace, n_tests = sell_fit(
+            prep, p_z_given_d, p_w_given_z, sample_weight=weight, n_iter=n_iter,
+            n_iter_per_test=n_iter_per_test, tolerance=tolerance, e_step_thresh=e_step_thresh)
+        zd_out, wz_out = _read_back(zd, wz)
+    return zd_out, wz_out, _info(n_steps, final_ll, ll_trace, n_tests, loop.seconds, prep.nnz, k,
                                  "sparse")
 
 
@@ -342,29 +373,41 @@ def plsa_refit(
     device="cuda",
 ):
     """Fit only ``P(z|d)`` against frozen ``topics``; returns it as numpy.
-    Routes to the sparse path as :func:`plsa_fit` does."""
+    Routes to the sparse path as :func:`plsa_fit` does. Its spans
+    (``stage``, ``init``, ``loop``) join an open request."""
     rng = check_random_state(random_state)
     cuda_em._check_precision(precision)
     k = topics.shape[0]
-    p_z_given_d = rng.rand(X.shape[0], k)
-    p_z_given_d /= p_z_given_d.sum(axis=1, keepdims=True)
-    p_z_given_d = p_z_given_d.astype(np.float32)
     topics = np.asarray(topics, dtype=np.float32)
     if _sparse_route(X, backend, e_step_thresh):
         if precision == "fast":
             _warn_fast_unsupported("sparse refit")
-        prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
-                                                                  device=device)
-        weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
-        zd = sell_refit(prep, p_z_given_d, topics, sample_weight=weight, n_iter=n_iter,
-                        n_iter_per_test=n_iter_per_test, tolerance=tolerance,
-                        e_step_thresh=e_step_thresh)[0]
-        return zd.cpu().numpy()
-    prep = _stage_or_reuse(X, backend, x_dtype, device)
-    Xd = prep.device_array
-    dev = Xd.device
-    zd, wz = pad_factors(p_z_given_d, topics, Xd.shape[0], Xd.shape[1])
-    w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
-    res = refit_padded(Xd, torch.from_numpy(zd).to(dev), torch.from_numpy(wz).to(dev),
-                       w, n_iter, n_iter_per_test, tolerance, kernel_steps(precision))
-    return res.state[0].cpu().numpy()[:prep.n, :k]
+        with span("stage"):
+            prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
+                                                                      device=device)
+            weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
+        with span("init"):
+            p_z_given_d = _refit_init(rng, X.shape[0], k)
+        with span("loop"):
+            zd = sell_refit(prep, p_z_given_d, topics, sample_weight=weight, n_iter=n_iter,
+                            n_iter_per_test=n_iter_per_test, tolerance=tolerance,
+                            e_step_thresh=e_step_thresh)[0]
+            return _read_back(zd)[0]
+    with span("stage"):
+        prep = _stage_or_reuse(X, backend, x_dtype, device)
+        Xd = prep.device_array
+        dev = Xd.device
+        w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
+    with span("init"):
+        zd, wz = pad_factors(_refit_init(rng, X.shape[0], k), topics, Xd.shape[0], Xd.shape[1])
+    with span("loop"):
+        res = refit_padded(Xd, *_factors_to(zd, wz, dev), w, n_iter, n_iter_per_test,
+                           tolerance, kernel_steps(precision))
+        return _read_back(res.state[0])[0][:prep.n, :k]
+
+
+def _refit_init(rng, n, k):
+    """The refit's initial ``P(z|d)``: uniform draws, rows normalised."""
+    p_z_given_d = rng.rand(n, k)
+    p_z_given_d /= p_z_given_d.sum(axis=1, keepdims=True)
+    return p_z_given_d.astype(np.float32)

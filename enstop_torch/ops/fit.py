@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..profiling import count
+
 # Size of the LL trajectory buffer: later test values are not recorded.
 MAX_LL_TRACE = 128
 
@@ -52,6 +54,7 @@ class _Trace:
 
 
 def _host(ll):
+    count("host_syncs")
     return float(ll)  # device -> host sync for a 0-d tensor
 
 

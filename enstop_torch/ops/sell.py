@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import count, span
 from ..utils import standardize_input
 from .cuda_sparse import build_side, doc_pass, word_pass
 from .data import resolve_device, ship_coo
@@ -95,8 +96,9 @@ def prepare_sell(X, standardize=True, kind="auto", device="cuda"):
         X = standardize_input(X)
     n, m = X.shape
     rows, cols, vals = ship_coo(X, dev)
-    doc = build_side(rows, cols, vals, n, m)  # row-major order is doc-major
-    return PreparedSell(doc, word_side(rows, cols, vals, m, n), n, m)
+    with span("stage.layout"):
+        doc = build_side(rows, cols, vals, n, m)  # row-major order is doc-major
+        return PreparedSell(doc, word_side(rows, cols, vals, m, n), n, m)
 
 
 def _ones(zd):
@@ -134,15 +136,21 @@ def log_likelihood_sell(prep, zd, wz, w=None):
     return doc_pass(prep.doc, zd, wz.t().contiguous(), _ones(zd) if w is None else w)[1]
 
 
+def _on_device(a, dev):
+    """``a`` as a float32 tensor on ``dev``; a copy from the host waits for it."""
+    if not (isinstance(a, torch.Tensor) and a.device == dev):
+        count("host_syncs")
+    return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+
 def _fit_inputs(prep, p_z_given_d, p_w_given_z, sample_weight, e_step_thresh):
     dev = prep.device
-    zd = torch.as_tensor(p_z_given_d, dtype=torch.float32, device=dev)
-    wz = torch.as_tensor(p_w_given_z, dtype=torch.float32, device=dev)
+    zd = _on_device(p_z_given_d, dev)
+    wz = _on_device(p_w_given_z, dev)
     if zd.shape != (prep.n, wz.shape[0]) or wz.shape[1] != prep.m:
         raise ValueError(f"factors {tuple(zd.shape)} and {tuple(wz.shape)} do not fit the "
                          f"corpus {prep.shape}")
-    w = _ones(zd) if sample_weight is None else torch.as_tensor(
-        sample_weight, dtype=torch.float32, device=dev)
+    w = _ones(zd) if sample_weight is None else _on_device(sample_weight, dev)
     thresholded = e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL
     return zd.contiguous(), wz.contiguous(), w, float(e_step_thresh) if thresholded else None
 

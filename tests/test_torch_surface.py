@@ -110,6 +110,12 @@ PORT_ONLY = {
     "ops.data.resolve_device": "the torch.device of a device= argument",
     "ops.driver.resolve_device": "the torch.device of a device= argument",
     "ops.data.ship_coo": "ships a corpus to the card as COO, where it is made dense",
+    "profiling.Request": "the spans of one request inside the program",
+    "profiling.request": "opens a request: a root span with its own id",
+    "profiling.span": "opens a span inside the innermost open one",
+    "profiling.count": "adds to a counter of the innermost open span",
+    "profiling.is_open": "whether a request is open, so that a fit joins it",
+    "profiling.idle_by_span": "a trace's device idle time put down to the program's spans",
     ("ops.driver.PreparedCounts", "word"): "the CSC word side that the dense step's A pass walks",
     "ops.driver.kernel_steps": "the EM steps on the CUDA kernels",
     "ops.driver.plain_steps": "the EM steps in plain PyTorch",
