@@ -83,28 +83,75 @@ def resolve_device(device):
     return dev
 
 
+# the value dtypes that torch takes from numpy and casts to float32 on any
+# device as numpy's ``astype`` does (round to nearest); others, such as
+# uint64, are cast on the host
+_SHIPPABLE = frozenset(np.dtype(t) for t in (np.bool_, np.int8, np.uint8, np.int16, np.int32,
+                                               np.int64, np.float32, np.float64))
+
+
 def ship_coo(X, device):
     """The nonzeros of a (sparse or dense) matrix on ``device``: ``(rows,
     cols, vals)``, int64, int64 and float32, in row-major order, each
-    (row, col) once (duplicates summed, explicit zeros dropped). The host's
-    numpy work is in spans ``stage.coo``, each array's copy in a span
-    ``stage.copy`` of its own."""
+    (row, col) once (duplicates summed, explicit zeros dropped), sharing no
+    memory with ``X``.
+
+    A CSR's own ``indptr``, ``indices`` and ``data`` are copied to ``device``
+    as they stand (a span ``stage.copy`` each) and expanded there; a check
+    there that each row's columns strictly increase and no value is zero
+    comes back as one flag (counter ``coo_as_is``). A CSR that fails it, or
+    whose values torch does not hold, is canonicalised on the host in a copy
+    and shipped again (counter ``coo_canonicalized``); ``X`` is never
+    changed. Other input is made a CSR on the host first. The expansion, the
+    check and any host work are in spans ``stage.coo``."""
+    if not (sp.issparse(X) and X.format == "csr"):
+        with span("stage.coo"):
+            X = sp.csr_matrix(X) if sp.issparse(X) else sp.csr_matrix(np.asarray(X))
+    if X.dtype in _SHIPPABLE:
+        coo = _expand(*_ship_csr(X, device), check=True)
+        if coo is not None:
+            count("coo_as_is")
+            return coo
+    count("coo_canonicalized")
     with span("stage.coo"):
-        Xc = sp.csr_matrix(X, copy=True) if sp.issparse(X) else sp.csr_matrix(np.asarray(X))
-        Xc.sum_duplicates()
-        Xc.eliminate_zeros()
-        coo = Xc.tocoo()
-    return tuple(_ship(a, dtype, device) for a, dtype in
-                 ((coo.row, np.int64), (coo.col, np.int64), (coo.data, np.float32)))
+        X = sp.csr_matrix(X, copy=True)
+        X.sum_duplicates()
+        X.eliminate_zeros()
+        if X.dtype not in _SHIPPABLE:
+            X.data = X.data.astype(np.float32)
+    return _expand(*_ship_csr(X, device), check=False)
 
 
-def _ship(a, dtype, device):
-    """``a`` cast on the host and copied to ``device``. Each cast array is
-    freed as soon as it is copied: casting all three first holds them at
-    once, which costs the host fresh pages on every fit (a dense fit at 20NG
-    measured 17 ms slower on an H100's host)."""
-    with span("stage.coo"):
-        a = a.astype(dtype)
+def _ship_csr(X, device):
+    """A CSR's ``indptr`` and its first ``nnz`` indices and values, each
+    copied to ``device`` in its own dtype."""
+    nnz = int(X.indptr[-1])
+    return tuple(_ship(a, device) for a in (X.indptr, X.indices[:nnz], X.data[:nnz]))
+
+
+def _ship(a, device):
+    """``a`` copied to ``device`` (on the CPU, a view of ``a``)."""
     with span("stage.copy", bytes=a.nbytes):
         count("host_syncs")  # a copy from pageable memory waits for it
         return torch.from_numpy(a).to(device)
+
+
+def _expand(indptr, indices, data, check):
+    """The COO of a CSR's arrays, on their device; None where ``check``
+    finds a row whose columns do not strictly increase, or a zero value. On
+    the CPU the arrays are the caller's, so the outputs are copies."""
+    with span("stage.coo"):
+        nnz = indices.numel()
+        indptr = indptr.long()
+        if check:
+            ok = data != 0
+            if nnz > 1:
+                row_start = torch.zeros(nnz + 1, dtype=torch.bool, device=indptr.device)
+                row_start.index_fill_(0, indptr, True)  # no wait (an index_put_ would wait)
+                ok[1:] &= row_start[1:nnz] | (indices[1:] > indices[:-1])
+            count("host_syncs")  # the flag read back
+            if not bool(ok.all()):
+                return None
+        own = indices.device.type == "cpu"
+        return (torch.repeat_interleave(indptr.diff(), output_size=nnz),
+                indices.to(torch.int64, copy=own), data.to(torch.float32, copy=own))

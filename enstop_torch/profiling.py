@@ -30,10 +30,15 @@ The spans of the program, each under its parent, in order:
   ``validate``  the estimator's input checks and zero-row split, or the
                 sample-weight check of prepared input
   ``stage``     the corpus and the document weights to the device
-    ``stage.coo``     the host's COO of the corpus (numpy), then the cast
-                      of its rows, of its cols and of its vals, one each
-    ``stage.copy``    the copy of each to the device, after its cast
-                      (attribute ``bytes``; 20 a nonzero over the three)
+    ``stage.copy``    the copy of the corpus's CSR arrays to the device as
+                      they stand, one each for ``indptr``, ``indices`` and
+                      ``data`` (attribute ``bytes``)
+    ``stage.coo``     their expansion to COO there and the check that the
+                      CSR is canonical (its flag read back); before the
+                      copies, any conversion of other input to a CSR on the
+                      host, and after the check, the host's canonical copy
+                      of a CSR that failed it (then copied and expanded
+                      again)
     ``stage.layout``  the layout built there: the dense scatter and the word
                       side, or the sparse path's two sides
   ``init``      the initial factors drawn and padded on the host
@@ -53,7 +58,9 @@ device (pageable memory: the copy waits for the stream), each value read
 back (a test point's log-likelihood, an index bound, a segment count) and
 each ``bincount`` (it reads its input's bounds back). It counts the same on
 any device, so a CPU fit reads what the same fit on a card would. No span or
-counter runs per EM step.
+counter runs per EM step. The counters ``coo_as_is`` and
+``coo_canonicalized`` count the corpora shipped as they stood and those
+canonicalised on the host first (``ops.data.ship_coo``).
 """
 
 from __future__ import annotations

@@ -28,13 +28,13 @@ from enstop_torch import profiling
 from enstop_torch.models import ensemble
 
 SCHEDULE = dict(n_iter=100, n_iter_per_test=10, tolerance=0.0)
-STAGED = ["stage", "stage.coo", *["stage.coo", "stage.copy"] * 3, "stage.layout"]
+STAGED = ["stage", *["stage.copy"] * 3, "stage.coo", "stage.layout"]
 # 100 steps, a test every 10: 11 log-likelihoods read back, and the two
-# factors copied up and read back; the corpus's rows, cols and vals copied up
-# (3); each side of the layout reads back 6 (bincount's 2, the index bounds,
-# the segment count, the end offset copied up); the dense path copies the
-# document weights up
-HOST_SYNCS = {("dense", "raw"): 25, ("sparse", "raw"): 30, ("dense", "prepared"): 16,
+# factors copied up and read back; the corpus's indptr, indices and data copied
+# up (3) and the canonical check's flag read back; each side of the layout
+# reads back 6 (bincount's 2, the index bounds, the segment count, the end
+# offset copied up); the dense path copies the document weights up
+HOST_SYNCS = {("dense", "raw"): 26, ("sparse", "raw"): 31, ("dense", "prepared"): 16,
               ("sparse", "prepared"): 15}
 
 
@@ -76,10 +76,14 @@ def test_a_fit_records_its_spans(path, kind):
     if kind == "raw":
         copies = [s for s in spans if s["name"] == "stage.copy"]
         assert {s["parent"] for s in copies} == {names.index("stage")}
-        assert sum(s["attrs"]["bytes"] for s in copies) == 20 * X.nnz
+        assert sum(s["attrs"]["bytes"] for s in copies) == (
+            X.indptr.nbytes + X.indices.nbytes + X.data.nbytes)
     loop = spans[by_name["loop"]]
     assert model.fit_info_["wall_time_s"] == loop["end"] - loop["start"]
-    assert record["counters"] == {"host_syncs": HOST_SYNCS[path, kind]}
+    counters = {"host_syncs": HOST_SYNCS[path, kind]}
+    if kind == "raw":
+        counters["coo_as_is"] = 1  # a canonical CSR ships as it stands
+    assert record["counters"] == counters
     assert not profiling.is_open()
 
 
@@ -114,6 +118,33 @@ def test_plsa_fit_is_a_request_unless_one_is_open(path):
     assert names == ["caller", "work", *STAGED, "init", "loop", "readback"]
     parents = {s["parent"] for s in req.record["spans"] if s["name"] in ("stage", "init")}
     assert parents == {1}
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse"])
+def test_a_canonical_corpus_ships_as_it_stands(path):
+    model, _ = _fit(path, "raw")
+    counters = model.fit_info_["trace"]["counters"]
+    assert counters["coo_as_is"] == 1
+    assert counters.get("coo_canonicalized", 0) == 0
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse"])
+def test_a_corpus_with_duplicates_is_canonicalised_first(path):
+    X = _corpus()
+    half = X.data // 2  # each nonzero split in two entries in a row, the first maybe zero
+    dup = sp.csr_matrix((np.stack([half, X.data - half], 1).ravel(), np.repeat(X.indices, 2),
+                         2 * X.indptr), shape=X.shape)
+    model, _ = _fit(path, "raw", X=dup)
+    counters = model.fit_info_["trace"]["counters"]
+    assert counters["coo_canonicalized"] == 1 and "coo_as_is" not in counters
+    # the flag read back, then the canonical copy's three arrays copied up
+    assert counters["host_syncs"] == HOST_SYNCS[path, "raw"] + 3
+    names = [s["name"] for s in model.fit_info_["trace"]["spans"]]
+    assert names[2:11] == ["stage", *["stage.copy"] * 3, "stage.coo", "stage.coo",
+                           *["stage.copy"] * 3]
+    canonical, _ = _fit(path, "raw")
+    np.testing.assert_array_equal(model.embedding_, canonical.embedding_)
+    np.testing.assert_array_equal(model.components_, canonical.components_)
 
 
 def test_a_zero_row_is_put_back_in_finish():
