@@ -925,8 +925,9 @@ def mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model, wa
 
     def keep_stack(*args, **kwargs):
         captured["call"] = (args, kwargs)
-        captured["stack"] = run_all(*args, **kwargs)
-        return captured["stack"]
+        stack, steps = run_all(*args, **kwargs)
+        captured["stack"] = stack
+        return stack, steps
 
     ens._ensemble_of_topics_device = keep_stack
     try:
@@ -944,7 +945,7 @@ def mesh_phase(X, XC, docs, model, sparse_model, resident_peak, thresh_model, wa
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    stack1 = run_all(*args, **{**kwargs, "devices": [card]})  # one runs-shard
+    stack1, _ = run_all(*args, **{**kwargs, "devices": [card]})  # one runs-shard
     torch.cuda.synchronize()
     one_shard_s = time.perf_counter() - t0
     one_shard_peak = torch.cuda.max_memory_allocated() - base
@@ -1777,8 +1778,9 @@ def main():
                              ens.umap_embed)
 
     def keep_stack(*args, **kwargs):
-        captured["stack"] = run_all(*args, **kwargs)
-        return captured["stack"]
+        stack, steps = run_all(*args, **kwargs)
+        captured["stack"] = stack
+        return stack, steps
 
     def keep_merge(all_topics, labels, weights=None):
         captured["merge"] = (labels, weights, merge(all_topics, labels, weights))

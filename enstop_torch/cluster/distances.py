@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.data import resolve_device
+from ..profiling import count
 
 __all__ = ["all_pairs_hellinger_distance", "all_pairs_kl_divergence",
            "hellinger", "kl_divergence", "full_fp32_matmul", "stack_device"]
@@ -84,6 +85,7 @@ def _as_f32(distributions, device=None):
 
 
 def _to_host(d):
+    count("host_syncs")  # the matrix read back
     out = d.cpu().numpy().astype(np.float64)
     np.fill_diagonal(out, 0.0)
     return out

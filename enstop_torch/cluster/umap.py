@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.data import resolve_device
+from ..profiling import count
 from ..utils import check_random_state
 
 __all__ = ["umap_embed", "UMAP", "fuzzy_simplicial_set", "find_ab_params"]
@@ -221,6 +222,9 @@ def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
     if heads.size == 0:
         return emb
     dev = torch.device(device)
+    # the edges' weights, heads, tails, both segment tables and the start
+    # copied up, each copy waiting, and the layout read back
+    count("host_syncs", 9)
     eps = torch.from_numpy(
         (weights.max() / np.maximum(weights, 1e-12)).astype(np.float32)).to(dev)
     h = torch.from_numpy(heads.astype(np.int64)).to(dev)

@@ -38,7 +38,9 @@ depend on its block, so the stack is the same for any number of shards.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,7 +59,7 @@ from ..ops.init import plsa_init
 from ..ops.nmf import nmf_cd, nmf_fit_mu
 from ..ops.sell import PreparedSell, prepare_sell, sell_fit
 from ..parallel import mesh as mesh_lib
-from ..profiling import request, span
+from ..profiling import count, is_open, request, span
 from ..utils import _check_sample_weight, check_random_state, normalized
 from .base import TopicModelBase, check_counts
 
@@ -232,8 +234,10 @@ def bootstrap_inputs(prepared, k, n_runs, rng, bootstrap=True, init="random", X=
         else:
             pzd0, pwz0 = plsa_init(prepared if X is None else X, k, init=init, rng=rng)
             factors = (pzd0, pwz0) if sparse else pad_factors(pzd0, pwz0, n_pad, m_pad)
+            count("host_syncs", 2)  # each copy from pageable memory waits
             zd, wz = (torch.from_numpy(a).to(dev) for a in factors)
         counts = (rng.multinomial(n, uniform) if bootstrap else np.ones(n)).astype(np.float32)
+        count("host_syncs")
         yield zd, wz, torch.from_numpy(pad_vector(counts, n_pad)).to(dev)
 
 
@@ -243,7 +247,8 @@ def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
                                prepared=None, device="cuda"):
     """``n_runs`` bootstrap fits against ONE staged copy of X (dense, or the
     sparse layout for ``backend="sparse"``), each bootstrap as document
-    weights; the ``(n_runs * k, m)`` stack stays on the device."""
+    weights. Returns the ``(n_runs * k, m)`` stack, which stays on the
+    device, and each run's EM steps."""
     if prepared is None and backend == "sparse":
         prepared = prepare_sell(X, standardize=False, device=device)
     elif prepared is None:
@@ -255,12 +260,13 @@ def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
         return _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap, init,
                                           n_iter, n_iter_per_test, tolerance)
     steps = kernel_steps(precision, prepared.word)
-    topics = []
+    topics, run_steps = [], []
     for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
         res = fit_padded(prepared.device_array, zd, wz, w, n_iter, n_iter_per_test,
                          tolerance, steps)
         topics.append(res.state[1][:k, :prepared.m])
-    return torch.cat(topics, dim=0)
+        run_steps.append(res.n_steps)
+    return torch.cat(topics, dim=0), run_steps
 
 
 def _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap=True, init="random",
@@ -268,11 +274,13 @@ def _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap=True, init
     """The bootstrap fan-out on the O(nnz) layout: each run a sparse fit with
     multinomial document weights, from a device init at the layout's own
     shapes. As in the JAX package, the runs take no ``e_step_thresh``."""
-    topics = []
+    topics, run_steps = [], []
     for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
-        topics.append(sell_fit(prepared, zd, wz, sample_weight=w, n_iter=n_iter,
-                               n_iter_per_test=n_iter_per_test, tolerance=tolerance)[1])
-    return torch.cat(topics, dim=0)
+        _, wz, n_steps, *_ = sell_fit(prepared, zd, wz, sample_weight=w, n_iter=n_iter,
+                                      n_iter_per_test=n_iter_per_test, tolerance=tolerance)
+        topics.append(wz)
+        run_steps.append(n_steps)
+    return torch.cat(topics, dim=0), run_steps
 
 
 def _sharded_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random", n_iter=100,
@@ -284,8 +292,9 @@ def _sharded_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random", n_iter=
     from ``rng`` in the JAX package's sharded order: every run's
     ``multinomial(n, 1/n)`` first, then one ``randint`` for the init seed
     with ``init="random"`` (run ``i`` seeds its device generator with
-    ``seed * 2**20 + i``, as in the weights fan-out), or one init a run. The
-    ``(n_runs * k, m)`` stack lies on the staged corpus's device."""
+    ``seed * 2**20 + i``, as in the weights fan-out), or one init a run.
+    Returns the ``(n_runs * k, m)`` stack, on the staged corpus's device,
+    and each run's EM steps."""
     mesh = mesh_lib.make_runs_mesh(mesh_lib.largest_divisor(n_runs, len(devices)), devices)
     if prepared is None:
         prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype, standardize=False,
@@ -306,15 +315,18 @@ def _sharded_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random", n_iter=
                             n_pad, m_pad) for _ in range(n_runs)]
 
         def factors(i, dev):
+            count("host_syncs", 2)  # each copy from pageable memory waits
             return tuple(torch.from_numpy(a).to(dev) for a in host[i])
 
     def inputs(i, dev):
+        count("host_syncs")
         return (*factors(i, dev), torch.from_numpy(ws[i]).to(dev))
 
     run = mesh_lib.build_ensemble_runs_sharded(mesh, precision)
     home = prepared.device_array.device
-    return torch.cat([wz[:k, :m].to(home)
-                      for wz in run(prepared, n_runs, inputs, tolerance, n_iter, n_iter_per_test)])
+    fitted = run(prepared, n_runs, inputs, tolerance, n_iter, n_iter_per_test)
+    return (torch.cat([wz[:k, :m].to(home) for wz, _ in fitted]),
+            [n_steps for _, n_steps in fitted])
 
 
 def ensemble_of_topics(X, k, model="plsa", n_jobs=4, n_runs=16, parallelism="auto",
@@ -342,8 +354,8 @@ def ensemble_of_topics(X, k, model="plsa", n_jobs=4, n_runs=16, parallelism="aut
                            kwargs.get("prepared"))
     parallelism = resolve_parallelism(parallelism, model, kwargs.get("backend", "auto"),
                                       n_runs, kwargs.get("prepared"), devices)
-    out = _ensemble_of_topics_device(X, k, model=model, n_jobs=n_jobs, n_runs=n_runs,
-                                     parallelism=parallelism, devices=devices, **kwargs)
+    out, _ = _ensemble_of_topics_device(X, k, model=model, n_jobs=n_jobs, n_runs=n_runs,
+                                        parallelism=parallelism, devices=devices, **kwargs)
     if isinstance(out, torch.Tensor):
         return np.array(out.cpu())
     return out
@@ -351,8 +363,10 @@ def ensemble_of_topics(X, k, model="plsa", n_jobs=4, n_runs=16, parallelism="aut
 
 def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
                                parallelism="weights", **kwargs):
-    """Internal fan-out, for a resolved ``parallelism``: the ``"weights"``
-    and ``"sharded"`` paths return the stack as a tensor on the device."""
+    """Internal fan-out, for a resolved ``parallelism``: ``(stack, run
+    steps)``. The ``"weights"`` and ``"sharded"`` paths return the stack as a
+    tensor on the device and each run's EM steps; the others a numpy stack
+    and None."""
     device = kwargs.get("device", "cuda")
     rng = check_random_state(kwargs.get("random_state", None))
     if model == "plsa" and parallelism == "sharded":
@@ -403,7 +417,7 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
 
                 workers = n_jobs if n_jobs > 0 else (os.cpu_count() or 1)
                 with ThreadPoolExecutor(max_workers=min(workers, n_runs)) as ex:
-                    return np.vstack(list(ex.map(one_run, seeds)))
+                    return np.vstack(list(ex.map(one_run, seeds))), None
         else:
             warnings.warn(
                 f"parallelism={parallelism!r} fans bootstrap fits out over host "
@@ -412,7 +426,7 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
                 "the device fan-out)",
                 stacklevel=3,
             )
-    return np.vstack([one_run(s) for s in seeds])
+    return np.vstack([one_run(s) for s in seeds]), None
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +455,7 @@ def _merge_topics_by_label(all_topics, labels, weights=None):
             if weights is not None and w.sum() <= 0:
                 w = np.ones(mask.sum())
             W[i, mask] = w / w.sum()
+        count("host_syncs", 2)  # the weights copied up, the stable topics read back
         merged = _merge_topics_device(all_topics.float(),
                                       torch.from_numpy(W).to(all_topics.device))
         return merged.cpu().numpy()
@@ -458,41 +473,97 @@ def _merge_topics_by_label(all_topics, labels, weights=None):
     return result
 
 
+class _Combined(NamedTuple):
+    """What a combiner made: the stable topics, the layout it clustered
+    (None where it clusters the distances themselves) and each stacked
+    topic's cluster label, as merged."""
+
+    stable_topics: np.ndarray
+    layout: np.ndarray | None
+    labels: np.ndarray
+
+
+def _labels_or_one_cluster(labels, strengths=None):
+    """All noise becomes one cluster of every topic, at full strength."""
+    if labels.max() < 0:
+        return np.zeros(labels.shape[0], dtype=np.intp), np.ones(labels.shape[0])
+    return labels, strengths
+
+
+def _combine_kl(all_topics, min_samples=5, min_cluster_size=5, device=None):
+    with span("combine.distances"):
+        divergence_matrix = all_pairs_kl_divergence(all_topics, device)
+    with span("combine.cluster"):
+        core = np.sort(divergence_matrix, axis=1)[:, min_samples]
+        tiled = np.tile(core, (core.shape[0], 1))
+        mutual_reach = np.dstack(
+            [divergence_matrix, divergence_matrix.T, tiled, tiled.T]
+        ).max(axis=-1)
+        ct = condense_tree(single_linkage_tree(mst_linkage(mutual_reach)), min_cluster_size)
+        selected = select_clusters(ct, compute_stability(ct), method="leaf")
+        if not selected:
+            labels = np.zeros(all_topics.shape[0], dtype=np.intp)
+        else:
+            labels, _ = labels_and_probabilities(ct, selected, all_topics.shape[0])
+        labels, _ = _labels_or_one_cluster(labels)
+    with span("combine.merge"):
+        return _Combined(_merge_topics_by_label(all_topics, labels), None, labels)
+
+
+def _combine_hellinger(all_topics, min_samples=5, min_cluster_size=5, device=None):
+    with span("combine.distances"):
+        dmat = all_pairs_hellinger_distance(all_topics, device)
+    with span("combine.cluster"):
+        labels = HDBSCAN(
+            min_samples=min_samples,
+            min_cluster_size=min_cluster_size,
+            metric="precomputed",
+            cluster_selection_method="leaf",
+        ).fit_predict(dmat)
+        labels, _ = _labels_or_one_cluster(labels)
+    with span("combine.merge"):
+        return _Combined(_merge_topics_by_label(all_topics, labels), None, labels)
+
+
+def _combine_hellinger_umap(all_topics, min_samples=5, min_cluster_size=5, n_neighbors=15,
+                            reduced_dim=5, random_state=None, device=None):
+    device = stack_device(all_topics, device)
+    with span("combine.distances"):
+        dmat = all_pairs_hellinger_distance(all_topics, device)
+    with span("combine.layout"):
+        embedding = umap_embed(
+            dmat=dmat,
+            n_components=reduced_dim,
+            n_neighbors=n_neighbors,
+            random_state=random_state,
+            device=device,
+        )
+    with span("combine.cluster"):
+        clusterer = HDBSCAN(
+            min_samples=min_samples,
+            min_cluster_size=min_cluster_size,
+            cluster_selection_method="leaf",
+            allow_single_cluster=True,
+        ).fit(embedding)
+        labels, strengths = _labels_or_one_cluster(clusterer.labels_, clusterer.probabilities_)
+    with span("combine.merge"):
+        return _Combined(_merge_topics_by_label(all_topics, labels, weights=strengths),
+                        embedding, labels)
+
+
 def generate_combined_topics_kl(all_topics, min_samples=5, min_cluster_size=5, device=None):
     """KL-divergence combiner: hand-built mutual reachability over the
     (asymmetric) divergence matrix, MST, leaf selection. ``device``: where a
     stack that is not a tensor is used (the card by default; a tensor stays on
     its own device), as for the distances."""
-    divergence_matrix = all_pairs_kl_divergence(all_topics, device)
-    core = np.sort(divergence_matrix, axis=1)[:, min_samples]
-    tiled = np.tile(core, (core.shape[0], 1))
-    mutual_reach = np.dstack(
-        [divergence_matrix, divergence_matrix.T, tiled, tiled.T]
-    ).max(axis=-1)
-    ct = condense_tree(single_linkage_tree(mst_linkage(mutual_reach)), min_cluster_size)
-    selected = select_clusters(ct, compute_stability(ct), method="leaf")
-    if not selected:
-        labels = np.zeros(all_topics.shape[0], dtype=np.intp)
-    else:
-        labels, _ = labels_and_probabilities(ct, selected, all_topics.shape[0])
-    if labels.max() < 0:
-        labels = np.zeros(all_topics.shape[0], dtype=np.intp)
-    return _merge_topics_by_label(all_topics, labels)
+    return _combine_kl(all_topics, min_samples, min_cluster_size, device).stable_topics
 
 
 def generate_combined_topics_hellinger(all_topics, min_samples=5, min_cluster_size=5,
                                        device=None):
     """Hellinger combiner: precomputed-metric HDBSCAN, leaf selection;
     ``device`` as for :func:`generate_combined_topics_kl`."""
-    labels = HDBSCAN(
-        min_samples=min_samples,
-        min_cluster_size=min_cluster_size,
-        metric="precomputed",
-        cluster_selection_method="leaf",
-    ).fit_predict(all_pairs_hellinger_distance(all_topics, device))
-    if labels.max() < 0:
-        labels = np.zeros(all_topics.shape[0], dtype=np.intp)
-    return _merge_topics_by_label(all_topics, labels)
+    return _combine_hellinger(all_topics, min_samples, min_cluster_size, device).stable_topics
 
 
 def generate_combined_topics_hellinger_umap(
@@ -503,32 +574,15 @@ def generate_combined_topics_hellinger_umap(
     layout on the stack's device), then euclidean HDBSCAN with leaf selection
     and ``allow_single_cluster``; clusters merged with membership-strength
     weights. ``device`` as for :func:`generate_combined_topics_kl`."""
-    device = stack_device(all_topics, device)
-    embedding = umap_embed(
-        dmat=all_pairs_hellinger_distance(all_topics, device),
-        n_components=reduced_dim,
-        n_neighbors=n_neighbors,
-        random_state=random_state,
-        device=device,
-    )
-    clusterer = HDBSCAN(
-        min_samples=min_samples,
-        min_cluster_size=min_cluster_size,
-        cluster_selection_method="leaf",
-        allow_single_cluster=True,
-    ).fit(embedding)
-    labels = clusterer.labels_
-    strengths = clusterer.probabilities_
-    if labels.max() < 0:
-        labels = np.zeros(all_topics.shape[0], dtype=np.intp)
-        strengths = np.ones(all_topics.shape[0])
-    return _merge_topics_by_label(all_topics, labels, weights=strengths)
+    return _combine_hellinger_umap(all_topics, min_samples, min_cluster_size, n_neighbors,
+                                   reduced_dim, random_state, device).stable_topics
 
 
-_topic_combiner = {
-    "kl_divergence": generate_combined_topics_kl,
-    "hellinger": generate_combined_topics_hellinger,
-    "hellinger_umap": generate_combined_topics_hellinger_umap,
+# the combiners by name, each with its layout and labels
+_combine = {
+    "kl_divergence": _combine_kl,
+    "hellinger": _combine_hellinger,
+    "hellinger_umap": _combine_hellinger_umap,
 }
 
 
@@ -565,11 +619,13 @@ def ensemble_fit(
 ):
     """Full ensemble pipeline; returns ``(doc_vectors, stable_topics)`` as numpy.
 
-    The call is a request ``ensemble`` (:mod:`enstop_torch.profiling`) with
-    the spans ``staging``, ``runs``, ``combine`` and ``refit``, whose lengths
-    land in ``ensemble_fit.last_timings`` (``staging_s``, ``runs_s``,
-    ``combine_s``, ``refit_s``); each stage ends waiting for the device, so
-    a stage's time holds its own device work.
+    The call is a request ``ensemble`` (:mod:`enstop_torch.profiling`), or
+    joins the one open, with the spans ``staging``, ``runs``, ``combine``
+    (``combine.distances``, ``combine.layout``, ``combine.cluster``,
+    ``combine.merge``) and ``refit``, whose lengths land in
+    ``ensemble_fit.last_timings`` (``staging_s``, ``runs_s``, ``combine_s``,
+    ``refit_s``); each stage ends waiting for the device, so a stage's time
+    holds its own device work.
 
     ``precision``: the bootstrap fits' and the final refit's (``"default"``,
     ``"highest"`` or ``"fast"``, see :func:`~enstop_torch.ops.driver.plsa_fit`).
@@ -591,12 +647,37 @@ def ensemble_fit(
     default every card of the corpus's device; one device may be named more
     than once).
     """
+    result = _ensemble_fit(**locals())
+    return result.doc_vectors, result.stable_topics
+
+
+class _EnsembleResult(NamedTuple):
+    """An ensemble fit: its answer, and what the combine stage was given and
+    made (the stack where the fan-out left it)."""
+
+    doc_vectors: np.ndarray
+    stable_topics: np.ndarray
+    topic_stack: torch.Tensor | np.ndarray
+    layout: np.ndarray | None
+    labels: np.ndarray
+    run_steps: list | None  # each run's EM steps (the device fan-outs)
+
+
+def _ensemble_fit(X, estimated_n_topics, model, init, min_samples, min_cluster_size,
+                  n_starts, n_jobs, parallelism, topic_combination, bootstrap, n_iter,
+                  n_iter_per_test, tolerance, e_step_thresh, lift_factor, beta_loss, alpha,
+                  solver, random_state, backend, x_dtype, precision, device, devices):
+    """:func:`ensemble_fit` as an :class:`_EnsembleResult`. The counters
+    ``runs`` and ``em_steps`` (the device fan-outs' runs and the sum of their
+    EM steps) land in ``runs``, ``stable_topics`` in ``combine``."""
     _check_model(model)
     cuda_em._check_precision(precision)
-    if topic_combination not in _topic_combiner:
-        raise ValueError(f"topic_combination must be one of {tuple(_topic_combiner)}")
+    if topic_combination not in _combine:
+        raise ValueError(f"topic_combination must be one of {tuple(_combine)}")
 
-    with request("ensemble", model=model, n_starts=n_starts):
+    opened = (contextlib.nullcontext() if is_open()
+              else request("ensemble", model=model, n_starts=n_starts))
+    with opened:
         with span("staging") as staging:
             is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
             devices = _run_devices(devices, device, X if is_prepared else None)
@@ -622,7 +703,7 @@ def ensemble_fit(
             _sync(dev)
 
         with span("runs") as runs:
-            all_topics = _ensemble_of_topics_device(
+            all_topics, run_steps = _ensemble_of_topics_device(
                 X,
                 estimated_n_topics,
                 model=model,
@@ -649,21 +730,26 @@ def ensemble_fit(
             if dev.type == "cuda" and not isinstance(all_topics, torch.Tensor):
                 # a stack fitted run by run comes back as numpy: the combine stage
                 # runs on the card all the same
+                count("host_syncs")
                 all_topics = torch.from_numpy(all_topics).to(dev)
+            if run_steps is not None:
+                count("runs", len(run_steps))
+                count("em_steps", sum(run_steps))
             _sync(dev)
 
         with span("combine") as combine:
-            cluster_topics = _topic_combiner[topic_combination]
             if topic_combination == "hellinger_umap":
-                stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
-                                               random_state=random_state, device=dev)
+                combined = _combine[topic_combination](
+                    all_topics, min_samples, min_cluster_size, random_state=random_state,
+                    device=dev)
             else:
-                stable_topics = cluster_topics(all_topics, min_samples, min_cluster_size,
-                                               device=dev)
-
-        if lift_factor != 1:
-            stable_topics = stable_topics ** lift_factor
-            stable_topics /= stable_topics.sum(axis=1, keepdims=True)
+                combined = _combine[topic_combination](all_topics, min_samples,
+                                                       min_cluster_size, device=dev)
+            stable_topics = combined.stable_topics
+            if lift_factor != 1:
+                stable_topics = stable_topics ** lift_factor
+                stable_topics /= stable_topics.sum(axis=1, keepdims=True)
+            count("stable_topics", stable_topics.shape[0])
 
         with span("refit") as refit:
             if model == "nmf":
@@ -685,7 +771,8 @@ def ensemble_fit(
 
     ensemble_fit.last_timings = {"staging_s": staging.seconds, "runs_s": runs.seconds,
                                  "combine_s": combine.seconds, "refit_s": refit.seconds}
-    return doc_vectors, stable_topics
+    return _EnsembleResult(doc_vectors, stable_topics, all_topics, combined.layout,
+                          combined.labels, run_steps)
 
 
 class EnsembleTopics(TopicModelBase):
@@ -700,7 +787,15 @@ class EnsembleTopics(TopicModelBase):
     Fitted attributes: ``components_``
     (n_components_, n_words), ``embedding_``, ``training_data_`` and
     ``n_components_``, the number of stable topics found (may differ from
-    ``n_components``).
+    ``n_components``); what the fit's combine stage was given and made:
+    ``topic_stack_``, the ``(n_starts * n_components, n_words)`` topics of the
+    runs (a tensor where the runs left it, on the card for the device
+    fan-outs), ``topic_layout_``, the UMAP coordinates it clustered (None for
+    the other combiners), and ``topic_labels_``, each stacked topic's
+    cluster (-1 for noise); and ``fit_info_``: ``run_steps`` (each run's EM
+    steps, None where the runs are not the device fan-outs), ``n_steps``
+    (their sum), ``wall_time_s`` (the ``runs`` span's seconds) and ``trace``
+    (the fit's request record, :mod:`enstop_torch.profiling`).
     """
 
     def __init__(
@@ -756,6 +851,10 @@ class EnsembleTopics(TopicModelBase):
         self.device = device
 
     def fit_transform(self, X, y=None, **fit_params):
+        """Fit and return the document embedding. The fit is a request
+        ``ensemble`` (:mod:`enstop_torch.profiling`): ``validate``, then the
+        spans of :func:`ensemble_fit`; its record is kept as
+        ``fit_info_["trace"]``."""
         if fit_params.pop("sample_weight", None) is not None:
             raise TypeError(
                 "EnsembleTopics does not support sample_weight (the reference's "
@@ -763,45 +862,55 @@ class EnsembleTopics(TopicModelBase):
                 "instead"
             )
         prepared = isinstance(X, (PreparedCounts, PreparedSell))
-        if not prepared:
-            X = check_counts(X)
-            if np.any(X.data < 0):
-                raise ValueError(
-                    "EnsembleTopics is only valid for matrices with non-negative "
-                    "entries (Negative values in data passed to fit)"
-                )
-        U, V = ensemble_fit(
-            X,
-            self.n_components,
-            model=self.model,
-            init=self.init,
-            min_samples=self.min_samples,
-            min_cluster_size=self.min_cluster_size,
-            n_starts=self.n_starts,
-            n_jobs=self.n_jobs,
-            parallelism=self.parallelism,
-            topic_combination=self.topic_combination,
-            bootstrap=self.bootstrap,
-            n_iter=self.n_iter,
-            n_iter_per_test=self.n_iter_per_test,
-            tolerance=self.tolerance,
-            e_step_thresh=self.e_step_thresh,
-            lift_factor=self.lift_factor,
-            beta_loss=self.beta_loss,
-            alpha=self.alpha,
-            solver=self.solver,
-            random_state=self.random_state,
-            backend=self.backend,
-            x_dtype=self.x_dtype,
-            precision=self.precision,
-            device=self.device,
-            devices=None if prepared else self._devices(),
-        )
-        self.components_ = V
-        self.embedding_ = U
+        with request("ensemble", estimator=type(self).__name__, model=self.model,
+                     backend=self.backend, n_starts=self.n_starts) as req:
+            with span("validate"):
+                if not prepared:
+                    X = check_counts(X)
+                    if np.any(X.data < 0):
+                        raise ValueError(
+                            "EnsembleTopics is only valid for matrices with non-negative "
+                            "entries (Negative values in data passed to fit)"
+                        )
+            result = _ensemble_fit(
+                X,
+                self.n_components,
+                model=self.model,
+                init=self.init,
+                min_samples=self.min_samples,
+                min_cluster_size=self.min_cluster_size,
+                n_starts=self.n_starts,
+                n_jobs=self.n_jobs,
+                parallelism=self.parallelism,
+                topic_combination=self.topic_combination,
+                bootstrap=self.bootstrap,
+                n_iter=self.n_iter,
+                n_iter_per_test=self.n_iter_per_test,
+                tolerance=self.tolerance,
+                e_step_thresh=self.e_step_thresh,
+                lift_factor=self.lift_factor,
+                beta_loss=self.beta_loss,
+                alpha=self.alpha,
+                solver=self.solver,
+                random_state=self.random_state,
+                backend=self.backend,
+                x_dtype=self.x_dtype,
+                precision=self.precision,
+                device=self.device,
+                devices=None if prepared else self._devices(),
+            )
+        self.components_ = result.stable_topics
+        self.embedding_ = result.doc_vectors
         self.training_data_ = None if prepared else X
         self.n_components_ = self.components_.shape[0]
-        return U
+        self.topic_stack_ = result.topic_stack
+        self.topic_layout_ = result.layout
+        self.topic_labels_ = result.labels
+        steps = result.run_steps
+        self.fit_info_ = {"run_steps": steps, "n_steps": None if steps is None else sum(steps),
+                          "wall_time_s": ensemble_fit.last_timings["runs_s"],
+                          "trace": req.record}
+        return self.embedding_
 
     def _devices(self):
         """The devices the ``"sharded"`` fan-out lays its runs over, and that

@@ -381,7 +381,8 @@ def _replica(prepared, device):
 
 def build_ensemble_runs_sharded(mesh, precision="default"):
     """``(prepared, n_runs, inputs, tolerance, n_iter, n_iter_per_test) ->
-    [P(w|z) of each run]``: an ensemble's bootstrap fits over a runs mesh.
+    [(P(w|z), EM steps) of each run]``: an ensemble's bootstrap fits over a
+    runs mesh.
     The runs are cut into ``mesh.shape["runs"]`` contiguous blocks; block s
     is fitted run after run on ``mesh.devices[s]`` with
     :func:`~..ops.driver.fit_padded` and ``kernel_steps(precision)``, against
@@ -404,7 +405,7 @@ def build_ensemble_runs_sharded(mesh, precision="default"):
                 zd, wz, w = inputs(i, dev)
                 res = fit_padded(rep.device_array, zd, wz, w, n_iter, n_iter_per_test,
                                  tolerance, steps)
-                out.append(res.state[1])
+                out.append((res.state[1], res.n_steps))
         return out
 
     return run

@@ -48,16 +48,34 @@ The spans of the program, each under its parent, in order:
   ``finish``    the estimator's zero rows put back and its record kept
 ``transform``   ``PLSA.transform``, to the profiler only: ``validate``,
                 ``stage``, ``init``, ``loop`` and ``readback`` as above
-``ensemble``    ``ensemble_fit``: ``staging``, ``runs``, ``combine``,
-                ``refit``, whose lengths are ``ensemble_fit.last_timings``
+``ensemble``    ``EnsembleTopics.fit`` / ``fit_transform`` (attributes
+                ``estimator``, ``model``, ``backend``, ``n_starts``; kept as
+                ``fit_info_["trace"]``), or ``ensemble_fit`` called with no
+                request open (attributes ``model``, ``n_starts``)
+  ``validate``  the estimator's input checks
+  ``staging``   the input cast and the corpus staged once for every run
+                (with ``stage.copy``, ``stage.coo`` and ``stage.layout``)
+  ``runs``      the bootstrap runs (counters ``runs`` and ``em_steps``, the
+                sum of their EM steps, for the device fan-outs)
+  ``combine``   the stable topics (counter ``stable_topics``):
+    ``combine.distances``  the distance matrix of the runs' topics
+    ``combine.layout``     the UMAP layout (``"hellinger_umap"`` only)
+    ``combine.cluster``    HDBSCAN
+    ``combine.merge``      each cluster merged into its stable topic
+  ``refit``     the documents refitted against the stable topics (the
+                spans of ``plsa_refit``); the lengths of ``staging``,
+                ``runs``, ``combine`` and ``refit`` are also
+                ``ensemble_fit.last_timings``
 
-``plsa_fit`` and ``plsa_refit`` called inside an open request add their
-spans to it. The counter ``host_syncs`` counts the points at which a fit on
+``plsa_fit``, ``plsa_refit`` and ``ensemble_fit`` called inside an open
+request add their spans to it. The counter ``host_syncs`` counts the points at which a fit on
 a card makes the host wait for the device: each copy between host and
 device (pageable memory: the copy waits for the stream), each value read
 back (a test point's log-likelihood, an index bound, a segment count) and
 each ``bincount`` (it reads its input's bounds back). It counts the same on
-any device, so a CPU fit reads what the same fit on a card would. No span or
+any device, so a CPU fit reads what the same fit on a card would; where a
+path runs only on the card (the UMAP layout's epochs on the device) it
+counts there alone. No span or
 counter runs per EM step. The counters ``coo_as_is`` and
 ``coo_canonicalized`` count the corpora shipped as they stood and those
 canonicalised on the host first (``ops.data.ship_coo``).

@@ -160,7 +160,7 @@ def measure_ensembles(X, docs, turns, out):
 def measure_combine_parts(X, turns, out):
     prepared = enstop_torch.prepare_counts(X.astype(np.float32), standardize=False,
                                            device="cuda")
-    stack = ens._ensemble_of_topics_device(
+    stack, _ = ens._ensemble_of_topics_device(
         None, K, n_runs=ENSEMBLE["n_starts"], parallelism="weights", n_iter=ENSEMBLE["n_iter"],
         random_state=ENSEMBLE["random_state"], precision="fast", prepared=prepared,
         device="cuda")
@@ -227,10 +227,10 @@ def measure_busy(X, turns, out):
             return result
         return run
 
-    originals = (ens._ensemble_of_topics_device, ens._topic_combiner["hellinger_umap"],
+    originals = (ens._ensemble_of_topics_device, ens._combine["hellinger_umap"],
                  ens.plsa_refit)
     ens._ensemble_of_topics_device = staged("runs", originals[0])
-    ens._topic_combiner["hellinger_umap"] = staged("combine", originals[1])
+    ens._combine["hellinger_umap"] = staged("combine", originals[1])
     ens.plsa_refit = staged("refit", originals[2])
     try:
         for _ in range(turns):
@@ -239,7 +239,7 @@ def measure_busy(X, turns, out):
                 enstop_torch.EnsembleTopics(precision=precision, device="cuda",
                                             **ENSEMBLE).fit_transform(X)
     finally:
-        (ens._ensemble_of_topics_device, ens._topic_combiner["hellinger_umap"],
+        (ens._ensemble_of_topics_device, ens._combine["hellinger_umap"],
          ens.plsa_refit) = originals
     out["busy"] = rec
     print("device busy share by ensemble stage, each under torch.profiler:", json.dumps(rec))

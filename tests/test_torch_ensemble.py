@@ -165,8 +165,9 @@ def _combine_both(name, stack, as_tensor, monkeypatch):
     port_seen = _capture_merge(port_ens, monkeypatch)
     jax_seen = _capture_merge(jax_ens, monkeypatch)
     # a numpy stack goes to the card unless the call names the CPU
-    got = port_ens._topic_combiner[name](torch.from_numpy(stack) if as_tensor else stack,
-                                         3, 4, **kw, **({} if as_tensor else {"device": "cpu"}))
+    got = port_ens._combine[name](torch.from_numpy(stack) if as_tensor else stack,
+                                  3, 4, **kw, **({} if as_tensor else {"device": "cpu"})
+                                  ).stable_topics
     want = jax_ens._topic_combiner[name](stack, 3, 4, **kw)
     assert got.shape == want.shape and got.shape[0] >= 2
     return (got, *port_seen[0]), (want, *jax_seen[0])

@@ -7,12 +7,15 @@ corpus's bytes; ``host_syncs`` counts the schedule's waits exactly; nothing
 is left open after a fit; the spans reach a ``torch.profiler`` export as
 ``enstop.*`` ranges; :func:`~enstop_torch.profiling.idle_by_span` puts a
 made-up trace's idle time down to the innermost range; ``StepTimer``
-sections and ``ensemble_fit``'s stages are spans.
+sections and ``ensemble_fit``'s stages are spans; an ensemble fit keeps its
+record (``fit_info_["trace"]``: ``validate``, ``staging``, ``runs``,
+``combine`` with its four stages, ``refit``) and counts its runs, their EM
+steps and its stable topics.
 
 On the card (marked ``cuda``; ``python -m pytest tests/test_torch_tracing.py
 -q --noconftest -m cuda``): ``host_syncs`` equals the synchronisations that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports over a fit, dense and
-sparse. This file imports no JAX.
+sparse, and over an ensemble call. This file imports no JAX.
 """
 
 import json
@@ -263,6 +266,54 @@ def test_the_ensemble_stages_are_spans(tmp_path):
             "enstop.refit", "enstop.stage.copy"} <= ranges
 
 
+ENSEMBLE_STAGES = ["validate", "staging", "runs", "combine", "refit"]
+COMBINE_STAGES = ["combine.distances", "combine.layout", "combine.cluster", "combine.merge"]
+
+
+@pytest.mark.parametrize("backend", ["auto", "sparse"])
+def test_an_ensemble_fit_keeps_its_record(backend):
+    model = enstop_torch.EnsembleTopics(n_components=3, n_starts=4, random_state=0,
+                                        backend=backend, device="cpu").fit(
+                                            _corpus(n=80, m=120))
+    record = model.fit_info_["trace"]
+    spans = record["spans"]
+    assert spans[0]["name"] == "ensemble" and spans[0]["parent"] is None
+    assert spans[0]["attrs"] == {"estimator": "EnsembleTopics", "model": "plsa",
+                                 "backend": backend, "n_starts": 4}
+    children = [s["name"] for s in spans if s["parent"] == 0]
+    assert children == ENSEMBLE_STAGES
+    combine = next(i for i, s in enumerate(spans) if s["name"] == "combine")
+    assert [s["name"] for s in spans if s["parent"] == combine] == COMBINE_STAGES
+    for s in spans[1:]:
+        parent = spans[s["parent"]]
+        assert parent["start"] <= s["start"] <= s["end"] <= parent["end"], s
+    steps = model.fit_info_["run_steps"]
+    assert len(steps) == 4 and all(1 <= n <= model.n_iter for n in steps)
+    counters = record["counters"]
+    assert counters["runs"] == 4 and counters["em_steps"] == sum(steps)
+    assert model.fit_info_["n_steps"] == sum(steps)
+    assert counters["stable_topics"] == model.n_components_
+    assert counters["host_syncs"] > 0
+    runs = next(s for s in spans if s["name"] == "runs")
+    assert model.fit_info_["wall_time_s"] == runs["end"] - runs["start"]
+    assert model.topic_stack_.shape == (4 * 3, 120)
+    assert model.topic_layout_.shape == (12, 5) and model.topic_labels_.shape == (12,)
+    assert not profiling.is_open()
+
+
+def test_an_ensemble_fit_is_a_request_of_its_own():
+    X = _corpus(n=80, m=120)
+    fits = [enstop_torch.EnsembleTopics(n_components=3, n_starts=2, random_state=0,
+                                        device="cpu").fit(X) for _ in range(2)]
+    assert fits[0].fit_info_["trace"]["id"] != fits[1].fit_info_["trace"]["id"]
+    assert (fits[0].fit_info_["trace"]["counters"]
+            == fits[1].fit_info_["trace"]["counters"])
+    # the function inside a caller's request adds its stages to the caller's
+    with profiling.request("caller") as req:
+        ensemble.ensemble_fit(X, 3, n_starts=2, random_state=0, device="cpu")
+    assert [s["name"] for s in req.record["spans"] if s["parent"] == 0] == ENSEMBLE_STAGES[1:]
+
+
 # -- on the card ----------------------------------------------------------------------
 
 @pytest.fixture
@@ -292,3 +343,22 @@ def test_host_syncs_are_the_sync_debug_modes(cuda, backend):
     counted = model.fit_info_["trace"]["counters"]["host_syncs"]
     assert len(syncs) == counted, sites
     assert counted == HOST_SYNCS["sparse" if backend == "sparse" else "dense", "raw"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "sparse"])
+def test_ensemble_host_syncs_are_the_sync_debug_modes(cuda, backend):
+    X = _corpus(n=600, m=900)
+    model = enstop_torch.EnsembleTopics(n_components=20, random_state=0, backend=backend)
+    model.fit(X)  # builds the kernels
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.fit(X)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    sites = sorted({(w.filename.rsplit("/", 1)[-1], w.lineno) for w in syncs})
+    assert len(syncs) == model.fit_info_["trace"]["counters"]["host_syncs"], sites
