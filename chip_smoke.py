@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
-``em_sparse.cu`` and ``em_batch.cu``, one ``nvcc`` each, started together)
+``em_sparse.cu``, ``em_batch.cu`` and ``umap_layout.cu``, one ``nvcc`` each,
+started together)
 and checks each kernel (the dense fp32 and bf16-responsibilities modes of
 ``precision="fast"``, the sparse word and doc passes, plain and thresholded,
 the batched row and word passes; phase 17: the dense B pass and the word
@@ -141,6 +142,14 @@ within 1e-5 of a float64 reference (a float32 Gram matrix over
 and bit for bit the matrix the ensemble used when recomputed with TF32
 allowed; the device merge within 1e-5 (max-norm relative) of the numpy merge;
 the device layout's trustworthiness at most 0.05 below the host layout's.
+The layout kernel (``umap_layout``), on the spectral start, graph, (a, b) and
+seed of the fast ensemble's own layout (phase 6): with b = 1, where powf is
+exact, the CPU loop's bits after 1, 5 and 20 epochs (so its negative samples
+are the numpy draws); at UMAP's (a, b) within 1e-5, 1e-3 and 5e-2 of the
+largest coordinate of the loop's (``tests/test_torch_umap_layout.py``'s
+``LOOP_GAP``: powf is the card's on one side and the CPU's on the other); the
+ensemble's 500-epoch layout again bit for bit; its time alone against the CPU
+loop's, and a bound of its fp32 operations on the one SM its block runs on.
 Phase 17: ``f32div``, ``recip_mul``, ``lax_recip``, ``nr1`` and ``nr2`` hold A
 and B to 1e-4, as the fp32 dense modes; ``bf16recip_x32`` and ``bf16r`` A to
 1e-4 and B to 1e-3 and must lie 4 times nearer their plain version than the
@@ -175,9 +184,16 @@ HELLINGER_SQ_ATOL, MERGE_RTOL, UMAP_TW_MARGIN = 1e-5, 1e-5, 0.05
 SPARSE_RTOL = 1e-5  # the sparse passes' A and B (max-norm relative) and LL
 N_TRANSFORM = 2000  # documents embedded by the transform phase
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM data sheet, 700 W
+# one of its 132 SMs, an fp32 operation a lane a cycle (FP32_FLOP_PER_S counts
+# an FMA as two; the layout kernel contracts nothing into one)
+FP32_OP_PER_SM_S = FP32_FLOP_PER_S / 2 / 132
+# the layout kernel against the CPU loop at UMAP's (a, b), by epochs run: the
+# largest coordinate gap over the largest coordinate (tests/test_torch_umap_layout.py)
+LAYOUT_GAP = {1: 1e-5, 5: 1e-3, 20: 5e-2}
 DENSE_SOURCE = "enstop_torch/ops/csrc/em_dense.cu"
 SPARSE_SOURCE = "enstop_torch/ops/csrc/em_sparse.cu"
 BATCH_SOURCE = "enstop_torch/ops/csrc/em_batch.cu"
+LAYOUT_SOURCE = "enstop_torch/ops/csrc/umap_layout.cu"
 KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "em": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:176"),
     "refit": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:224"),
@@ -191,6 +207,8 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "doc_pass_thresh": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     "batch": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
     "batch_word": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
+    # no TPU kernel: the JAX package's layout is one compiled lax.fori_loop
+    "umap_layout": (LAYOUT_SOURCE, "enstop_tpu/cluster/umap.py:183"),
 }
 # phase 17: the ratio modes built for the divide experiment's step only
 # (cuda_em.RATIO_MODES less "f32div" and "bf16r", which are rows em / em_bf16r)
@@ -423,6 +441,65 @@ def check_combine(stack, labels, weights, layout, label, merge):
     check(max(e_dev, e_host) <= HELLINGER_SQ_ATOL, f"{label} Hellinger matrix on the card")
     check(e_merge <= MERGE_RTOL, f"{label} device merge agrees with the numpy merge")
     check(tw_dev >= tw_host - UMAP_TW_MARGIN, f"{label} device UMAP layout")
+
+
+def layout_bound_ms(eps, n_epochs, dim, rounds=5):
+    """The least time of the layout kernel, whose one block runs on one SM:
+    its fp32 operations over that SM's rate. Each active edge of an epoch (the
+    schedule of next_epoch, run here) costs in each of its 1 + ``rounds``
+    steps dsq (3 a dimension) and a coefficient (6 attracting, 7 repelling,
+    powf counted as one), and 6 a coordinate of each end it moves (two in the
+    attractive step, the head in a negative round); barriers and the ordered
+    sums' latency are not counted."""
+    next_epoch, active_edges = eps.copy(), 0
+    for epoch in range(n_epochs):
+        active = next_epoch <= np.float32(epoch + 1)
+        active_edges += int(active.sum())
+        next_epoch[active] += eps[active]
+    ops = active_edges * ((1 + rounds) * 3 * dim + 6 + 7 * rounds + (2 + rounds) * 6 * dim)
+    return 1e3 * ops / FP32_OP_PER_SM_S, "operations"
+
+
+def check_layout_kernel(optimize, emb, W, n_epochs, a, b, seed, layout):
+    """The layout kernel on the inputs of a main-path layout (the start, graph,
+    epochs, a, b and seed ``umap_embed`` gave ``optimize``, that is
+    ``umap._optimize_layout_device``, and the ``layout`` it returned) against
+    the CPU loop, as the module docstring says. Returns ``(max abs gap to the
+    loop at UMAP's (a, b), (kernel ms, CPU loop ms), bound)``."""
+    from enstop_torch.cluster import umap
+    from enstop_torch.ops import cuda_umap
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    for epochs in sorted(LAYOUT_GAP):
+        loop, card = (optimize(emb, W, epochs, a, b, seed, device=d) for d in ("cpu", dev))
+        same = np.array_equal(*(optimize(emb, W, epochs, a, 1.0, seed, device=d)
+                                for d in ("cpu", dev)))
+        gap = float(np.abs(card - loop).max())
+        worst = max(worst, gap)
+        print(f"  layout kernel vs the CPU loop, {emb.shape[0]} points in {emb.shape[1]} "
+              f"dimensions, {epochs} epochs: b = 1 {'bit for bit the same' if same else 'DIFFER'}"
+              f"; at UMAP's (a, b) max abs gap {gap:.3e} over max |coordinate| "
+              f"{float(np.abs(loop).max()):.3e}")
+        check(same, f"the layout kernel gives the CPU loop's bits at b = 1 after {epochs} epochs")
+        check(gap <= LAYOUT_GAP[epochs] * float(np.abs(loop).max()),
+              f"the layout kernel agrees with the CPU loop after {epochs} epochs")
+    check(np.array_equal(optimize(emb, W, n_epochs, a, b, seed, device=dev), layout),
+          "the ensemble's layout is the kernel's again, bit for bit")
+    x, heads, tails, eps, a32, b32 = umap._layout_inputs(emb, W, a, b)
+    n, dim = x.shape
+    packed = torch.from_numpy(cuda_umap.pack(x, heads, tails, eps)).to(dev)
+    # each launch on a fresh copy of the start (a 20-100 KB copy on the card)
+    kernel_ms = cuda_ms(lambda: cuda_umap.launch_layout(packed.clone(), n, dim, n_epochs, a32,
+                                                        b32, seed), 5)
+    t0 = time.perf_counter()
+    optimize(emb, W, n_epochs, a, b, seed, device="cpu")
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    least = layout_bound_ms(eps, n_epochs, dim)
+    print(f"  layout kernel, {n_epochs} epochs, {heads.size} edges (CUDA events): "
+          f"{kernel_ms:.4f} ms, {1e3 * kernel_ms / n_epochs:.2f} us an epoch; the CPU loop "
+          f"{loop_ms:.1f} ms; bound {least[0]:.4f} ms ({least[1]}, one SM)")
+    return worst, (kernel_ms, loop_ms), least
 
 
 def bound(moved, operations):
@@ -1773,9 +1850,12 @@ def main():
     from enstop_torch.models import ensemble as ens
 
     # what the combine stage was given and made, for check_combine
+    from enstop_torch.cluster import umap as umap_mod
+
     captured = {}
     run_all, merge, embed = (ens._ensemble_of_topics_device, ens._merge_topics_by_label,
                              ens.umap_embed)
+    device_layout = umap_mod._optimize_layout_device
 
     def keep_stack(*args, **kwargs):
         stack, steps = run_all(*args, **kwargs)
@@ -1790,8 +1870,14 @@ def main():
         captured["umap"] = (kwargs, embed(**kwargs))
         return captured["umap"][1]
 
+    def keep_device_layout(emb, W, n_epochs, a, b, seed, **kwargs):
+        out = device_layout(emb, W, n_epochs, a, b, seed, **kwargs)
+        captured["layout"] = (emb, W, n_epochs, a, b, seed, out)
+        return out
+
     ens._ensemble_of_topics_device, ens._merge_topics_by_label, ens.umap_embed = (
         keep_stack, keep_merge, keep_layout)
+    umap_mod._optimize_layout_device = keep_device_layout
     walls = {}
     try:
         for precision in ("fast", "default"):
@@ -1812,8 +1898,8 @@ def main():
                   f"wall, transform of {N_TRANSFORM} docs {transform_s:.3f} s wall, "
                   f"last_timings {json.dumps(timings)}, topic stack {tuple(stack.shape)} "
                   f"on {stack.device}")
-            needed = (("em_bf16r", "word_pass_bf16r", "refit_bf16r", "ll")
-                      if precision == "fast" else ("em", "word_pass", "refit", "ll"))
+            needed = (("em_bf16r", "word_pass_bf16r", "refit_bf16r", "ll", "umap_layout")
+                      if precision == "fast" else ("em", "word_pass", "refit", "ll", "umap_layout"))
             read_counts(f"ensemble {precision} fit + transform", needed, cuda_em, em, totals)
             check(tuple(stack.shape) == (ENSEMBLE["n_starts"] * 20, X.shape[1])
                   and stack.device.type == "cuda", "the topic stack is (320, n_words) on the card")
@@ -1825,6 +1911,9 @@ def main():
             check(np.array_equal(ensemble.components_, merged),
                   "the stable topics are the merge of the clusters found")
             check_combine(stack, labels, weights, captured["umap"], precision, merge)
+            if precision == "fast":
+                (worst["umap_layout"], timing["umap_layout"],
+                 bounds["umap_layout"]) = check_layout_kernel(device_layout, *captured["layout"])
             check_distributions(ensemble.components_, f"{precision} stable topics")
             check_distributions(ens_embedding, f"{precision} ensemble embedding")
             check_distributions(ens_docs, f"{precision} ensemble transform rows")
@@ -1861,6 +1950,7 @@ def main():
     finally:
         ens._ensemble_of_topics_device, ens._merge_topics_by_label, ens.umap_embed = (
             run_all, merge, embed)
+        umap_mod._optimize_layout_device = device_layout
     print("  ensemble wall, fast vs default: fit_transform "
           f"{walls['fast'][0]:.3f} / {walls['default'][0]:.3f} s, stages fast "
           f"{json.dumps(walls['fast'][2])} default {json.dumps(walls['default'][2])}")
@@ -1958,7 +2048,8 @@ def main():
     sens_embedding = sens.fit_transform(XC2)
     sens_wall = time.perf_counter() - t0
     s_timings = dict(ens.ensemble_fit.last_timings)
-    launches = read_counts("sparse ensemble fit", ("word_pass", "doc_pass"), cuda_em, em, totals)
+    launches = read_counts("sparse ensemble fit", ("word_pass", "doc_pass", "umap_layout"), cuda_em,
+                           em, totals)
     print(f"phase 11 sparse ensemble at config C': n_components_ {sens.n_components_}, "
           f"fit_transform {sens_wall:.3f} s wall, last_timings {json.dumps(s_timings)}")
     check(sens.n_components_ >= 2, "at least two stable topics")

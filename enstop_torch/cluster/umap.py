@@ -18,7 +18,8 @@ are equivalent for clustering purposes.
 Everything up to the layout is NumPy/SciPy and gives the JAX package's numbers
 bit for bit; so does the host layout (:func:`_optimize_layout`). The device
 layout (:func:`_optimize_layout_device`) is the JAX package's compiled epoch
-loop written as a torch loop on the device.
+loop: on a CUDA device one launch of a hand-written kernel for every epoch
+(``ops/csrc/umap_layout.cu``), on the CPU the same epochs as a torch loop.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import cuda_umap
 from ..ops.data import resolve_device
 from ..profiling import count
 from ..utils import check_random_state
@@ -191,69 +193,125 @@ def _optimize_layout(emb, W, n_epochs, a, b, rng, negative_sample_rate=5,
     return emb
 
 
-def _segments(index, n, device):
+# lowbias32 (C. Wellons), a bijection of 32-bit words: ``mix32`` of
+# ops/csrc/umap_layout.cu, in 64-bit words masked to 32 bits
+_MASK32 = np.uint64(0xFFFFFFFF)
+_GOLDEN = 0x9E3779B9
+
+
+def _mix32(x):
+    x = np.asarray(x, np.uint64)
+    x = x ^ (x >> np.uint64(16))
+    x = (x * np.uint64(0x7FEB352D)) & _MASK32
+    x = x ^ (x >> np.uint64(15))
+    x = (x * np.uint64(0x846CA68B)) & _MASK32
+    return x ^ (x >> np.uint64(16))
+
+
+def _negative_samples(seed, epoch, rnd, n_edges, n):
+    """The negative samples of round ``rnd`` of ``epoch``: for each edge
+    ``e < n_edges`` a point in ``[0, n)``, from a counter-based hash of the low
+    32 bits of ``seed``, ``epoch``, ``rnd`` and ``e``, taken to ``[0, n)`` by
+    multiply-shift. The layout kernel draws the same (``draw`` in
+    ``ops/csrc/umap_layout.cu``), so the CPU loop and the card run one
+    schedule: with ``b = 1`` the two give the same bits."""
+    key = _mix32(_mix32(_mix32(np.uint64((int(seed) & 0xFFFFFFFF) ^ _GOLDEN))
+                        ^ np.uint64(epoch)) ^ np.uint64(rnd))
+    h = _mix32(key ^ np.arange(n_edges, dtype=np.uint64))
+    return ((h * np.uint64(n)) >> np.uint64(32)).astype(np.int64)
+
+
+def _segments(index, n):
     """The edges grouped by ``index`` in a fixed (stable) order, as
     ``(edge ids, group offsets)`` for :func:`_ordered_add`."""
     order = np.argsort(index, kind="stable")
     offsets = np.searchsorted(index[order], np.arange(n))
-    return (torch.from_numpy(order.astype(np.int64)).to(device),
-            torch.from_numpy(offsets.astype(np.int64)).to(device))
+    return torch.from_numpy(order.astype(np.int64)), torch.from_numpy(offsets.astype(np.int64))
 
 
 def _ordered_add(x, segments, g):
     """``x[index[e]] += g[e]`` for every edge e, each point's terms summed in
-    one fixed order (an ``index_add_`` on CUDA sums with atomics, in an order
-    that changes from run to run)."""
+    one fixed order, the edges' own."""
     x.add_(F.embedding_bag(segments[0], g, segments[1], mode="sum"))
 
 
-def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
-                            negative_sample_rate=5, initial_alpha=1.0):
-    """The same SGD as :func:`_optimize_layout` as a float32 epoch loop on
-    ``device`` (the JAX package's ``lax.fori_loop`` program): the same update
-    schedule and gradient math, the scatter-adds as fixed-order segment sums
-    (:func:`_ordered_add`, so a layout is the same from run to run), and the
-    negative samples from a ``torch.Generator`` on the device seeded with
-    ``seed``. That random stream differs from the numpy path's and from the
-    JAX package's, which is equivalent for clustering purposes, like the numpy
-    path's own deviation from umap-learn's Hogwild."""
-    heads, tails = np.nonzero(W)
-    weights = W[heads, tails]
-    if heads.size == 0:
-        return emb
-    dev = torch.device(device)
-    # the edges' weights, heads, tails, both segment tables and the start
-    # copied up, each copy waiting, and the layout read back
-    count("host_syncs", 9)
-    eps = torch.from_numpy(
-        (weights.max() / np.maximum(weights, 1e-12)).astype(np.float32)).to(dev)
-    h = torch.from_numpy(heads.astype(np.int64)).to(dev)
-    t = torch.from_numpy(tails.astype(np.int64)).to(dev)
-    by_head, by_tail = (_segments(i, emb.shape[0], dev) for i in (heads, tails))
-    x = torch.from_numpy(np.asarray(emb, np.float32)).to(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed) % (2 ** 31 - 1))
-    n = x.shape[0]
-    a, b = float(np.float32(a)), float(np.float32(b))
+def _sq_norms(d):
+    """The rows' squared norms, the dimensions summed in order, as the layout
+    kernel sums them."""
+    dsq = d[:, 0] * d[:, 0]
+    for k in range(1, d.shape[1]):
+        dsq = dsq + d[:, k] * d[:, k]
+    return dsq
+
+
+def _layout_loop(x, heads, tails, eps, n_epochs, a, b, seed, negative_sample_rate,
+                 initial_alpha):
+    """The layout's epochs as a float32 torch loop on the CPU: what the layout
+    kernel computes, the scatter-adds as fixed-order segment sums."""
+    n, n_edges = x.shape[0], heads.size
+    h, t = torch.from_numpy(heads), torch.from_numpy(tails)
+    by_head, by_tail = _segments(heads, n), _segments(tails, n)
+    x = torch.from_numpy(x.copy())
+    eps = torch.from_numpy(eps)
     next_epoch = eps.clone()
     for epoch in range(n_epochs):
         alpha = initial_alpha * (1.0 - epoch / n_epochs)
         active = next_epoch <= epoch + 1.0
         d = x[h] - x[t]
-        dsq = (d * d).sum(1)
+        dsq = _sq_norms(d)
         gc = torch.where(dsq > 0, (-2.0 * a * b * dsq ** (b - 1.0)) / (a * dsq ** b + 1.0), 0.0)
         g = (gc[:, None] * d).clamp(-4.0, 4.0) * active[:, None]
         _ordered_add(x, by_head, alpha * g)
         _ordered_add(x, by_tail, -alpha * g)
-        for _ in range(negative_sample_rate):
-            neg = torch.randint(0, n, (h.numel(),), generator=gen, device=dev)
+        for rnd in range(negative_sample_rate):
+            neg = torch.from_numpy(_negative_samples(seed, epoch, rnd, n_edges, n))
             d = x[h] - x[neg]
-            dsq = (d * d).sum(1)
+            dsq = _sq_norms(d)
             rep = torch.where(dsq > 0, (2.0 * b) / ((0.001 + dsq) * (a * dsq ** b + 1.0)), 0.0)
             g = (rep[:, None] * d).clamp(-4.0, 4.0) * ((neg != h) & active)[:, None]
             _ordered_add(x, by_head, alpha * g)
         next_epoch = torch.where(active, next_epoch + eps, next_epoch)
-    return x.cpu().numpy().astype(np.float64)
+    return x.numpy()
+
+
+def _layout_inputs(emb, W, a, b):
+    """The layout's inputs in the float32 and int the epochs run in: the
+    start, the graph's edges (heads nondecreasing, tails), their epochs per
+    sample, a and b; None for a graph with no edge."""
+    heads, tails = np.nonzero(W)
+    weights = W[heads, tails]
+    if heads.size == 0:
+        return None
+    eps = (weights.max() / np.maximum(weights, 1e-12)).astype(np.float32)
+    return (np.asarray(emb, np.float32), heads, tails, eps,
+            float(np.float32(a)), float(np.float32(b)))
+
+
+def _optimize_layout_device(emb, W, n_epochs, a, b, seed, device="cpu",
+                            negative_sample_rate=5, initial_alpha=1.0):
+    """The same SGD as :func:`_optimize_layout` in float32 on ``device``: the
+    same update schedule and gradient math, each point's terms summed in one
+    fixed order (so a layout is the same from run to run), and the negative
+    samples of :func:`_negative_samples` keyed by ``seed``. On a CUDA device
+    every epoch runs in one launch of the layout kernel
+    (``ops/csrc/umap_layout.cu``); on the CPU the same epochs run as a torch
+    loop (:func:`_layout_loop`). That random stream differs from the numpy
+    path's and from the JAX package's, which is equivalent for clustering
+    purposes, like the numpy path's own deviation from umap-learn's Hogwild."""
+    inputs = _layout_inputs(emb, W, a, b)
+    if inputs is None:
+        return emb
+    x, heads, tails, eps, a, b = inputs
+    # the edges and the start copied up in one copy, and the layout read back
+    count("host_syncs", 2)
+    args = (x, heads, tails, eps, n_epochs, a, b, seed)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        out = cuda_umap.optimize_layout(*args, dev, negative_sample_rate, initial_alpha)
+        count("layout_launches")
+    else:
+        out = _layout_loop(*args, negative_sample_rate, initial_alpha)
+    return out.astype(np.float64)
 
 
 def umap_embed(
@@ -273,10 +331,10 @@ def umap_embed(
     matrix or data + a metric callable (rows assumed l1-normalized for hellinger).
 
     ``device``: ``"cuda"`` by default; a CUDA device that is missing raises,
-    nothing falls back to the CPU. ``layout``: ``"auto"`` runs the SGD as a
-    torch loop on ``device`` when that is a CUDA device and in numpy
+    nothing falls back to the CPU. ``layout``: ``"auto"`` runs the SGD as the
+    layout kernel on ``device`` when that is a CUDA device and in numpy
     otherwise; ``"device"``/``"host"`` force a path (``"device"`` with a CPU
-    ``device`` runs the torch loop on the CPU)."""
+    ``device`` runs the kernel's epochs as a torch loop on the CPU)."""
     device = resolve_device(device)
     rng = check_random_state(random_state)
     if dmat is None:

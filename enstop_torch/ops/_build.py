@@ -9,7 +9,8 @@ stale library is never loaded.
 :func:`build_all` runs one ``nvcc`` per source, all started together.
 
 ``LAUNCHES`` counts kernel launches by kernel and mode; each wrapper raises
-its count where it launches its kernel, and nowhere else.
+its count where it launches its kernel, and nowhere else (:func:`launch`
+does both for a wrapper whose entry point takes the stream last).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 from .em import RATIO_MODES
 
@@ -39,14 +42,17 @@ NVCC_FLAGS = (
 # batched fit's row pass for B ("batch") and word pass for A ("batch_word", the
 # sparse word pass over a grid of runs); then the dense B pass and the word
 # pass in the five ratio modes that only the divide experiment's step runs
-# (cuda_em._em_accumulators_ratio)
+# (cuda_em._em_accumulators_ratio); then the UMAP layout, every epoch in one
+# launch (cuda_umap.py)
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
             "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0,
             **{f"{kind}_{mode}": 0 for mode in RATIO_MODES[1:-1]
-               for kind in ("em", "word_pass")}}
+               for kind in ("em", "word_pass")},
+            "umap_layout": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_D, _U = ctypes.c_double, ctypes.c_uint
 # C signatures of the entry points, by library
 _SIGNATURES = {
     "em_dense": {
@@ -67,6 +73,12 @@ _SIGNATURES = {
         # stream
         "enstop_em_batch": (_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I,
                             _P),
+    },
+    "umap_layout": {
+        # packed, scratch, n_edges, n, dim, n_epochs, rounds, initial_alpha, a, b,
+        # b_minus_1, c_att, c_rep, seed, shared, blocks, threads, stream
+        "enstop_umap_layout": (_P, _P, _LL, _I, _I, _I, _I, _D, _F, _F, _F, _F, _F, _U, _I,
+                               _I, _I, _P),
     },
 }
 
@@ -149,3 +161,14 @@ def build_all(names=tuple(_SIGNATURES)):
     started together; returns the libraries in order."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         return list(pool.map(library, names))
+
+
+def launch(key, fn, dev, *args):
+    """Call the entry point ``fn`` with ``args`` and the current stream of the
+    CUDA device ``dev``, raise on the CUDA error it returns, and count the
+    launch as ``LAUNCHES[key]``."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+    LAUNCHES[key] += 1

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import em as em_ops
-from ._build import LAUNCHES, library
+from ._build import LAUNCHES, launch, library
 from .cuda_em import ROW_STREAM, _check_precision, _on_cpu, walk_args, word_side_of
 from .cuda_sparse import MAX_KP, launch_pass
 from .data import resolve_device
@@ -81,15 +81,6 @@ def _check_tables(zds, wzT, n, m, device, ws=None):
     return R, kp
 
 
-def _launch(name, dev, *args):
-    fn = library("em_batch").enstop_em_batch
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"em_batch {name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-
-
 def batch_rows(X, zds, wzT, shape=None, stream=BATCH_STREAM):
     """The row pass: ``B`` (R, n, kp) from X (n, m), bf16 or float32, and the
     run tables ``zds`` (R, n, kp) and ``wzT`` (R, m, kp). ``shape`` (L, TPL)
@@ -105,8 +96,9 @@ def batch_rows(X, zds, wzT, shape=None, stream=BATCH_STREAM):
     R, kp = _check_tables(zds, wzT, n, m, X.device)
     args = walk_args(kp, shape, stream)
     B = torch.empty((R, n, kp), dtype=torch.float32, device=X.device)
-    _launch("batch", X.device, int(X.dtype == torch.bfloat16), *args,
-            X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), B.data_ptr(), R, n, m, kp)
+    launch("batch", library("em_batch").enstop_em_batch, X.device,
+           int(X.dtype == torch.bfloat16), *args,
+           X.data_ptr(), zds.data_ptr(), wzT.data_ptr(), B.data_ptr(), R, n, m, kp)
     return B
 
 

@@ -59,7 +59,9 @@ The spans of the program, each under its parent, in order:
                 sum of their EM steps, for the device fan-outs)
   ``combine``   the stable topics (counter ``stable_topics``):
     ``combine.distances``  the distance matrix of the runs' topics
-    ``combine.layout``     the UMAP layout (``"hellinger_umap"`` only)
+    ``combine.layout``     the UMAP layout (``"hellinger_umap"`` only;
+                           counter ``layout_launches``, the layout kernel's
+                           launches, 1 on a card)
     ``combine.cluster``    HDBSCAN
     ``combine.merge``      each cluster merged into its stable topic
   ``refit``     the documents refitted against the stable topics (the

@@ -9,9 +9,10 @@ numpy inputs.
   JAX package's (Hellinger absolute; KL relative to the largest divergence):
   both are float32 products, summed in different orders.
 * UMAP, host layout: bit for bit with the JAX package given the same distance
-  matrix and seed. Device layout (a torch loop, run here on CPU tensors): the
-  behaviour gates of ``tests/test_umap_behavior.py``, since its random stream
-  is torch's.
+  matrix and seed. Device layout (on the CPU the layout kernel's epochs as a
+  torch loop): the behaviour gates of ``tests/test_umap_behavior.py``, since
+  its negative samples are the kernel's counter-based draws
+  (``umap._negative_samples``), not the JAX package's stream.
 """
 
 import numpy as np

@@ -20,6 +20,7 @@ def test_import_leaves_jax_and_sklearn_out():
         "import sys, enstop_torch, enstop_torch.convert, enstop_torch.synthetic\n"
         "import enstop_torch.cluster, enstop_torch.models.ensemble, enstop_torch.ops.coo\n"
         "import enstop_torch.ops.cuda_batch, enstop_torch.ops.nmf, enstop_torch.ops.metrics\n"
+        "import enstop_torch.ops.cuda_umap\n"
         "import enstop_torch.models.streamed, enstop_torch.models.streamed_core\n"
         "import enstop_torch.models.accelerated, enstop_torch.profiling\n"
         "import enstop_torch.datasets, enstop_torch.models.mesh\n"
@@ -106,7 +107,8 @@ def test_exports():
         "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",
         "batch", "batch_word",
         *(f"{kind}_{mode}" for mode in ("recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32")
-          for kind in ("em", "word_pass"))}
+          for kind in ("em", "word_pass")),
+        "umap_layout"}
 
 
 def test_default_cuda_device_raises_without_a_card():
