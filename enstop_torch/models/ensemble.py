@@ -10,8 +10,9 @@ topics.
 On one device the runs share one staged copy of the padded corpus (the
 ``"weights"`` fan-out): each bootstrap is a vector of multinomial document
 weights, ``Multinomial(n, 1/n)``, the row multiset that a row resample
-materialises, so no run copies the data. Each run is the ordinary fit loop
-(``ops/driver.py:fit_padded``) from a random init made on the device. The
+materialises, so no run copies the data. Each run is the staged corpus's own
+fit (``ops/data.py:_Staged``; ``fit_padded`` on the dense layout) from a
+random init made on the device. The
 topic stack stays on the device for the distance matrix and the merge; the
 UMAP layout runs on the device too, HDBSCAN on the host.
 
@@ -52,12 +53,11 @@ from ..cluster.hdbscan import (HDBSCAN, compute_stability, condense_tree,
                                single_linkage_tree)
 from ..cluster.umap import umap_embed
 from ..ops import cuda_em
-from ..ops.data import K_MULTIPLE, pad_factors, pad_vector, round_up
-from ..ops.driver import (PreparedCounts, _warn_fast_unsupported, fit_padded, kernel_steps,
-                          plsa_fit, plsa_refit, prepare_counts, resolve_device)
+from ..ops.data import K_MULTIPLE, _is_staged, pad_factors, pad_vector, round_up
+from ..ops.driver import _staged, plsa_fit, plsa_refit, prepare_counts, resolve_device
+from ..ops.em import _TINY, _rownorm
 from ..ops.init import plsa_init
 from ..ops.nmf import nmf_cd, nmf_fit_mu
-from ..ops.sell import PreparedSell, prepare_sell, sell_fit
 from ..parallel import mesh as mesh_lib
 from ..profiling import count, is_open, request, span
 from ..utils import _check_sample_weight, check_random_state, normalized
@@ -148,11 +148,7 @@ def _run_devices(devices, device, prepared=None):
     corpus's device (:func:`~enstop_torch.parallel.mesh.local_devices`)."""
     if devices is not None:
         return list(devices)
-    if isinstance(prepared, PreparedSell):
-        device = prepared.device
-    elif isinstance(prepared, PreparedCounts):
-        device = prepared.device_array.device
-    return mesh_lib.local_devices(device)
+    return mesh_lib.local_devices(device if prepared is None else prepared.device)
 
 
 def resolve_parallelism(parallelism, model="plsa", backend="auto", n_runs=16, prepared=None,
@@ -170,7 +166,7 @@ def resolve_parallelism(parallelism, model="plsa", backend="auto", n_runs=16, pr
         raise ValueError(f"Unrecognized parallelism {parallelism!r}; should be one of "
                          f"{tuple(sorted(PARALLELISM))}")
     n_devices = 1 if devices is None else len(devices)
-    sparse_input = backend == "sparse" or isinstance(prepared, PreparedSell)
+    sparse_input = backend == "sparse" or (prepared is not None and prepared.backend == "sparse")
     if parallelism == "auto":
         if model != "plsa":
             return "resample"
@@ -203,37 +199,32 @@ def _device_init(n_pad, kp, n, k, m_pad, m, seed, device):
     zd = torch.rand((n_pad, kp), generator=gen, device=device)
     zd[n:] = 0.0
     zd[:, k:] = 0.0
-    zd /= zd.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    zd /= zd.sum(dim=1, keepdim=True).clamp_min(_TINY)
     wz = torch.rand((kp, m_pad), generator=gen, device=device)
     wz[k:] = 0.0
     wz[:, m:] = 0.0
-    wz /= wz.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    wz /= wz.sum(dim=1, keepdim=True).clamp_min(_TINY)
     return zd, wz
 
 
 def bootstrap_inputs(prepared, k, n_runs, rng, bootstrap=True, init="random", X=None):
     """Yield each run's ``(P(z|d), P(w|z), document weights)`` on the device of
-    ``prepared``: padded for a :class:`PreparedCounts`, at the layout's own
-    shapes (n, k) and (k, m) for a :class:`PreparedSell`. Draws from ``rng``
+    ``prepared``, at the layout's shapes: padded for a :class:`PreparedCounts`,
+    (n, k) and (k, m) for a :class:`PreparedSell`. Draws from ``rng``
     in the JAX package's order: one ``randint`` for the init seed when
     ``init="random"`` (run ``i`` then seeds its device generator with
     ``seed * 2**20 + i``), then per run the init (a factor tuple draws
     nothing) and one ``multinomial(n, 1/n)``."""
-    n, m = prepared.n, prepared.m
-    sparse = isinstance(prepared, PreparedSell)
-    if sparse:
-        n_pad, m_pad, kp, dev = n, m, k, prepared.device
-    else:
-        (n_pad, m_pad), dev = prepared.device_array.shape, prepared.device_array.device
-        kp = round_up(k, K_MULTIPLE)
+    n, m, dev = prepared.n, prepared.m, prepared.device
+    n_pad, kp, m_pad = prepared._padded(k)
     uniform = np.full(n, 1.0 / n)
     base_seed = int(rng.randint(np.iinfo(np.int32).max)) if init == "random" else None
     for i in range(n_runs):
         if base_seed is not None:
             zd, wz = _device_init(n_pad, kp, n, k, m_pad, m, base_seed * (1 << 20) + i, dev)
         else:
-            pzd0, pwz0 = plsa_init(prepared if X is None else X, k, init=init, rng=rng)
-            factors = (pzd0, pwz0) if sparse else pad_factors(pzd0, pwz0, n_pad, m_pad)
+            factors = prepared._pad(*plsa_init(prepared if X is None else X, k, init=init,
+                                               rng=rng))
             count("host_syncs", 2)  # each copy from pageable memory waits
             zd, wz = (torch.from_numpy(a).to(dev) for a in factors)
         counts = (rng.multinomial(n, uniform) if bootstrap else np.ones(n)).astype(np.float32)
@@ -247,39 +238,17 @@ def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
                                prepared=None, device="cuda"):
     """``n_runs`` bootstrap fits against ONE staged copy of X (dense, or the
     sparse layout for ``backend="sparse"``), each bootstrap as document
-    weights. Returns the ``(n_runs * k, m)`` stack, which stays on the
-    device, and each run's EM steps."""
-    if prepared is None and backend == "sparse":
-        prepared = prepare_sell(X, standardize=False, device=device)
-    elif prepared is None:
-        prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype, standardize=False,
-                                  device=device)
-    if isinstance(prepared, PreparedSell):
-        if precision == "fast":
-            _warn_fast_unsupported("sparse ensemble fan-out")
-        return _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap, init,
-                                          n_iter, n_iter_per_test, tolerance)
-    steps = kernel_steps(precision, prepared.word)
+    weights and each run the staged corpus's fit. As in the JAX package, the
+    runs take no ``e_step_thresh``. Returns the ``(n_runs * k, m)`` stack,
+    which stays on the device, and each run's EM steps."""
+    if prepared is None:
+        prepared = _staged(X, backend, x_dtype=x_dtype, device=device, counts=True)
+    steps = prepared._steps(precision, "sparse ensemble fan-out")
     topics, run_steps = [], []
     for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
-        res = fit_padded(prepared.device_array, zd, wz, w, n_iter, n_iter_per_test,
-                         tolerance, steps)
+        res = prepared._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance, steps)
         topics.append(res.state[1][:k, :prepared.m])
         run_steps.append(res.n_steps)
-    return torch.cat(topics, dim=0), run_steps
-
-
-def _sparse_resident_plsa_runs(X, k, n_runs, rng, prepared, bootstrap=True, init="random",
-                               n_iter=100, n_iter_per_test=10, tolerance=0.001):
-    """The bootstrap fan-out on the O(nnz) layout: each run a sparse fit with
-    multinomial document weights, from a device init at the layout's own
-    shapes. As in the JAX package, the runs take no ``e_step_thresh``."""
-    topics, run_steps = [], []
-    for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
-        _, wz, n_steps, *_ = sell_fit(prepared, zd, wz, sample_weight=w, n_iter=n_iter,
-                                      n_iter_per_test=n_iter_per_test, tolerance=tolerance)
-        topics.append(wz)
-        run_steps.append(n_steps)
     return torch.cat(topics, dim=0), run_steps
 
 
@@ -369,8 +338,11 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
     and None."""
     device = kwargs.get("device", "cuda")
     rng = check_random_state(kwargs.get("random_state", None))
-    if model == "plsa" and parallelism == "sharded":
-        return _sharded_plsa_runs(
+    if model == "plsa" and parallelism in ("weights", "sharded"):
+        runs, where = ((_sharded_plsa_runs, {"devices": kwargs["devices"]})
+                       if parallelism == "sharded" else
+                       (_device_resident_plsa_runs, {"device": device}))
+        return runs(
             X, k, n_runs, rng,
             bootstrap=kwargs.get("bootstrap", True),
             init=kwargs.get("init", "random"),
@@ -381,21 +353,7 @@ def _ensemble_of_topics_device(X, k, model="plsa", n_jobs=4, n_runs=16,
             precision=kwargs.get("precision", "default"),
             x_dtype=kwargs.get("x_dtype", "auto"),
             prepared=kwargs.get("prepared"),
-            devices=kwargs["devices"],
-        )
-    if model == "plsa" and parallelism == "weights":
-        return _device_resident_plsa_runs(
-            X, k, n_runs, rng,
-            bootstrap=kwargs.get("bootstrap", True),
-            init=kwargs.get("init", "random"),
-            n_iter=kwargs.get("n_iter", 100),
-            n_iter_per_test=kwargs.get("n_iter_per_test", 10),
-            tolerance=kwargs.get("tolerance", 0.001),
-            backend=kwargs.get("backend", "auto"),
-            precision=kwargs.get("precision", "default"),
-            x_dtype=kwargs.get("x_dtype", "auto"),
-            prepared=kwargs.get("prepared"),
-            device=device,
+            **where,
         )
 
     # seeds drawn up front: run i's stream is the same whether the fits run
@@ -438,8 +396,7 @@ def _merge_topics_device(T, W):
     matrix; the square-root average is one float32 product on T's device."""
     with full_fp32_matmul():
         avg = W @ T.clamp_min(0.0).sqrt()
-    sq = avg * avg
-    return sq / sq.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    return _rownorm(avg * avg)
 
 
 def _merge_topics_by_label(all_topics, labels, weights=None):
@@ -679,27 +636,21 @@ def _ensemble_fit(X, estimated_n_topics, model, init, min_samples, min_cluster_s
               else request("ensemble", model=model, n_starts=n_starts))
     with opened:
         with span("staging") as staging:
-            is_prepared = isinstance(X, (PreparedCounts, PreparedSell))
-            devices = _run_devices(devices, device, X if is_prepared else None)
-            parallelism = resolve_parallelism(parallelism, model, backend, n_starts,
-                                              X if is_prepared else None, devices)
-            if is_prepared:
-                prepared, X = X, None
+            prepared = X if _is_staged(X) else None
+            devices = _run_devices(devices, device, prepared)
+            parallelism = resolve_parallelism(parallelism, model, backend, n_starts, prepared,
+                                              devices)
+            if prepared is not None:
+                X, dev = None, prepared.device
                 if model != "plsa" or parallelism not in ("weights", "sharded"):
                     raise ValueError("Prepared input requires model='plsa' and "
                                      "parallelism='weights' or 'sharded'")
-                dev = (prepared.device if isinstance(prepared, PreparedSell)
-                       else prepared.device_array.device)
             else:
                 # raw float32 counts, not l1-normalised: the ensemble fits the counts
                 X = check_counts(X, dtype=np.float32)
                 dev = resolve_device(device)
-                prepared = None
-                if model == "plsa" and parallelism == "weights" and backend == "sparse":
-                    prepared = prepare_sell(X, standardize=False, device=dev)
-                elif model == "plsa" and parallelism in ("weights", "sharded"):
-                    prepared = prepare_counts(X, backend=backend, x_dtype=x_dtype,
-                                              standardize=False, device=dev)
+                if model == "plsa" and parallelism in ("weights", "sharded"):
+                    prepared = _staged(X, backend, x_dtype=x_dtype, device=dev, counts=True)
             _sync(dev)
 
         with span("runs") as runs:
@@ -861,7 +812,7 @@ class EnsembleTopics(TopicModelBase):
                 "ensemble has no weighted path); weight the individual PLSA fits "
                 "instead"
             )
-        prepared = isinstance(X, (PreparedCounts, PreparedSell))
+        prepared = _is_staged(X)
         with request("ensemble", estimator=type(self).__name__, model=self.model,
                      backend=self.backend, n_starts=self.n_starts) as req:
             with span("validate"):

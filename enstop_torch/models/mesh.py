@@ -26,10 +26,10 @@ import time
 
 import numpy as np
 
-from ..ops.data import pad_factors, pad_vector
-from ..ops.driver import _weighted, resolve_backend
+from ..ops.data import _weighted, pad_factors, pad_vector
+from ..ops.driver import resolve_backend
 from ..ops.init import plsa_init
-from ..ops.sell import THRESH_MATERIAL
+from ..ops.sell import _material_thresh
 from ..parallel import mesh as mesh_lib
 from ..parallel.sparse_mesh import make_docs_mesh, sparse_mesh_fit, sparse_mesh_refit
 from ..utils import check_random_state
@@ -146,9 +146,6 @@ class BlockParallelPLSA(TopicModelBase):
     def _docs_mesh(self):
         return make_docs_mesh(devices=self._checked_devices(), span_ranks=self._spans_ranks)
 
-    def _thresh_is_material(self):
-        return self.e_step_thresh is not None and self.e_step_thresh > THRESH_MATERIAL
-
     def _record(self, X, good_rows, zero_rows_found, U, V, info):
         if zero_rows_found:
             self.embedding_ = reinsert_zero_rows(U, good_rows, X.shape[0], self.n_components)
@@ -163,7 +160,7 @@ class BlockParallelPLSA(TopicModelBase):
 
     def fit_transform(self, X, y=None, sample_weight=None):
         """Fit and return the document embedding ``P(z|d)``."""
-        if self._thresh_is_material():
+        if _material_thresh(self.e_step_thresh) is not None:
             return self._fit_transform_sparse(X, sample_weight)
         X, sample_weight = validate_corpus(X, sample_weight)
         data, good_rows, zero_rows_found = split_zero_rows(X)
@@ -197,7 +194,7 @@ class BlockParallelPLSA(TopicModelBase):
         """Embed new documents against the fitted topics: the frozen-topics
         refit over the mesh (50 iterations, a test every 5, tolerance 1e-3;
         on the sparse layout 50, 10 and 5e-3, as in JAX)."""
-        if self._thresh_is_material():
+        if _material_thresh(self.e_step_thresh) is not None:
             return self._transform_sparse(X)
         X = check_counts(X)
         self._validate_transform_input(X)

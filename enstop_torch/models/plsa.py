@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.driver import PreparedCounts, plsa_fit, plsa_refit
-from ..ops.sell import PreparedSell
+from ..ops.data import _is_staged
+from ..ops.driver import plsa_fit, plsa_refit
 from ..profiling import request, span
 from ..utils import _check_sample_weight, check_random_state
 from .base import (TopicModelBase, check_counts, reinsert_zero_rows, split_zero_rows,
@@ -92,7 +92,7 @@ class PLSA(TopicModelBase):
     def _fit(self, X, sample_weight):
         """The fit's spans ``validate``, then those of ``plsa_fit``, then
         ``finish``; returns the info dict."""
-        prepared = isinstance(X, (PreparedCounts, PreparedSell))
+        prepared = _is_staged(X)
         with span("validate"):
             if prepared:
                 sample_weight = _check_sample_weight(sample_weight, X, dtype=np.float32)

@@ -49,10 +49,10 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.cuda_sparse import Side, build_side, doc_pass, word_pass
-from ..ops.data import resolve_device, ship_coo
-from ..ops.driver import _weighted
+from ..ops.data import _weighted, resolve_device, ship_coo
+from ..ops.em import _rownorm
 from ..ops.init import plsa_init
-from ..ops.sell import THRESH_MATERIAL, _normalize, word_side
+from ..ops.sell import _material_thresh, word_side
 from ..utils import check_random_state
 
 __all__ = ["streamed_fit_core", "streamed_refit_core"]
@@ -181,12 +181,6 @@ class _Streamer:
             torch.cuda.current_stream(self.device).wait_stream(self.copy_stream)
 
 
-def _threshold(e_step_thresh):
-    if e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL:
-        return float(e_step_thresh)
-    return None
-
-
 def _per_block(store, values, device):
     return [torch.from_numpy(np.ascontiguousarray(values[lo:hi], dtype=np.float32)).to(device)
             for lo, hi in store.block_rows]
@@ -215,7 +209,7 @@ def streamed_fit_core(X, k, sample_weight=None, init="random", block_docs=65536,
     t0 = time.perf_counter()
     store = _BlockStore(X, block_docs, pin=dev.type == "cuda")
     n, m = store.n, store.m
-    thresh = _threshold(e_step_thresh)
+    thresh = _material_thresh(e_step_thresh)
     pzd0, pwz0 = plsa_init(X, k, init=init, rng=rng)
     wz = torch.from_numpy(pwz0).to(dev)
     zd_blocks = _per_block(store, pzd0, dev)
@@ -241,10 +235,10 @@ def streamed_fit_core(X, k, sample_weight=None, init="random", block_docs=65536,
             AT, _ = word_pass(word, zd_blocks[b], wzT, w_blocks[b], thresh, compute_ll=False)
             a_sum += AT
             B, ll_b = doc_pass(doc, zd_blocks[b], wzT, w_blocks[b], thresh)
-            zd_blocks[b] = _normalize(B if thresh is not None else zd_blocks[b] * B)
+            zd_blocks[b] = _rownorm(B if thresh is not None else zd_blocks[b] * B)
             ll_acc += ll_b
         sweeps += 1
-        wz = _normalize(a_sum.t() if thresh is not None else wz * a_sum.t())
+        wz = _rownorm(a_sum.t() if thresh is not None else wz * a_sum.t())
         steps_run = t
 
         if (t - 1) in test_points and t - 1 >= 1:
@@ -312,7 +306,7 @@ def streamed_refit_core(X, topics, sample_weight=None, block_docs=65536, n_iter=
     store = _BlockStore(X, block_docs, pin=dev.type == "cuda")
     n = store.n
     k = topics.shape[0]
-    thresh = _threshold(e_step_thresh)
+    thresh = _material_thresh(e_step_thresh)
     wzT = torch.from_numpy(np.asarray(topics, np.float32)).to(dev).t().contiguous()
     z0 = rng.rand(n, k)
     z0 /= z0.sum(axis=1, keepdims=True)
@@ -338,7 +332,7 @@ def streamed_refit_core(X, topics, sample_weight=None, block_docs=65536, n_iter=
             zd_b = zd_blocks[bi]
             for t in range(a, b_end + 1):
                 B, ll_b = doc_pass(doc, zd_b, wzT, w_blocks[bi], thresh, compute_ll=t == a)
-                zd_b = _normalize(B if thresh is not None else zd_b * B)
+                zd_b = _rownorm(B if thresh is not None else zd_b * B)
                 if t == a:
                     ll_acc += ll_b
             zd_blocks[bi] = zd_b

@@ -17,17 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from .em import _TINY, _rownorm
+
 __all__ = ["e_step_coo", "m_step_coo", "em_step_coo", "log_likelihood_coo"]
-
-_TINY = 1e-30
-
 
 def e_step_coo(rows, cols, vals, p_z_given_d, p_w_given_z, probability_threshold=1e-32):
     """Responsibilities ``P(z|w,d)`` for each nonzero, ``(nnz, k)``; rows whose
     surviving mass is zero stay all-zero."""
     v = p_z_given_d[rows, :] * p_w_given_z[:, cols].t()
     v = torch.where(v > probability_threshold, v, 0.0)
-    return v / v.sum(dim=1, keepdim=True).clamp_min(_TINY)
+    return _rownorm(v)
 
 
 def m_step_coo(rows, cols, vals, resp, n, m, sample_weight=None):
@@ -36,9 +35,9 @@ def m_step_coo(rows, cols, vals, resp, n, m, sample_weight=None):
     xw_words = xw if sample_weight is None else xw * sample_weight[rows][:, None]
     k = resp.shape[1]
     pwz = torch.zeros((m, k), dtype=xw.dtype, device=xw.device).index_add_(0, cols, xw_words).t()
-    pwz = pwz / pwz.sum(dim=1, keepdim=True).clamp_min(_TINY)
+    pwz = _rownorm(pwz)
     pzd = torch.zeros((n, k), dtype=xw.dtype, device=xw.device).index_add_(0, rows, xw)
-    pzd = pzd / pzd.sum(dim=1, keepdim=True).clamp_min(_TINY)
+    pzd = _rownorm(pzd)
     return pzd, pwz
 
 

@@ -51,7 +51,6 @@ from .data import resolve_device
 __all__ = ["BATCH_STREAM", "batch_rows", "batch_words", "batched_accumulators",
            "batched_em_step", "batched_em_fit"]
 
-_TINY = em_ops._TINY
 # the row pass's stream: a queue that holds a whole row of the corpora at hand
 # (a 20NG row has at most 196 nonzeros), so X is streamed once for all runs;
 # 2 KB windows measured best at R = 16 on an H100 (scripts/torch_dense_sweep.py)
@@ -139,11 +138,8 @@ def batched_accumulators(X, zds, wzs, ws=None, precision="default", word=None):
 def batched_em_step(X, zds, wzs, ws=None, precision="default", word=None):
     """One EM step of every run: ``(next_zds, next_wzs)``."""
     A, B = batched_accumulators(X, zds, wzs, ws, precision, word)
-    next_wz = wzs * A
-    next_wz = next_wz / next_wz.sum(dim=2, keepdim=True).clamp_min(_TINY)
-    next_zd = zds * B
-    next_zd = next_zd / next_zd.sum(dim=2, keepdim=True).clamp_min(_TINY)
-    return next_zd, next_wz
+    next_wz = em_ops._rownorm(wzs * A)
+    return em_ops._rownorm(zds * B), next_wz
 
 
 def _on(device, a, dtype=None):

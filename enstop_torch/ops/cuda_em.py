@@ -56,7 +56,6 @@ from . import em as em_ops
 from ._build import LAUNCHES, library
 from .cuda_sparse import MAX_KP, _pass, _ratio_of, build_side, walk_shape, word_pass
 
-_TINY = em_ops._TINY
 RATIO_MODES = em_ops.RATIO_MODES
 _SMEM_LIMIT = 232_448 - 1024  # shared memory a block may use on an H100, less the static part
 # the walk shapes (L, TPL) built beside cuda_sparse.WALK_SHAPES, for bf16 X in the
@@ -237,11 +236,8 @@ def em_step_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
     ``(next_zd, next_wz, ll_of_inputs)``."""
     A, B, ll = em_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight,
                                      compute_ll, precision, word)
-    next_wz = p_w_given_z * A
-    next_wz = next_wz / next_wz.sum(dim=1, keepdim=True).clamp_min(_TINY)
-    next_zd = p_z_given_d * B
-    next_zd = next_zd / next_zd.sum(dim=1, keepdim=True).clamp_min(_TINY)
-    return next_zd, next_wz, ll
+    next_wz = em_ops._rownorm(p_w_given_z * A)
+    return em_ops._rownorm(p_z_given_d * B), next_wz, ll
 
 
 def refit_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
@@ -264,8 +260,7 @@ def refit_step_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,
     ``(next_zd, ll_of_inputs)``."""
     B, ll = refit_accumulators_fused(X, p_z_given_d, p_w_given_z, sample_weight,
                                      compute_ll, precision)
-    next_zd = p_z_given_d * B
-    return next_zd / next_zd.sum(dim=1, keepdim=True).clamp_min(_TINY), ll
+    return em_ops._rownorm(p_z_given_d * B), ll
 
 
 def log_likelihood_fused(X, p_z_given_d, p_w_given_z, sample_weight=None,

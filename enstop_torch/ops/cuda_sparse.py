@@ -32,7 +32,7 @@ import torch
 
 from ..profiling import count
 from ._build import LAUNCHES, library
-from .em import RATIO_MODES, ratio as _ratio
+from .em import _TINY, RATIO_MODES, ratio as _ratio
 
 __all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk_shape",
            "launch_pass", "word_pass", "doc_pass", "word_pass_plain", "doc_pass_plain",
@@ -49,7 +49,6 @@ MAX_KP = 256
 # times (csrc/em_sparse.cu: kSweepShapes).
 WALK_SHAPES = ((1, 4), (1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (32, 8))
 SWEEP_SHAPES = ((1, 20), (1, 24), (2, 12), (8, 4), (8, 16), (32, 4))
-_TINY = 1e-30
 
 CALLS = {"word_pass": 0, "doc_pass": 0}
 

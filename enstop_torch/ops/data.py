@@ -64,6 +64,47 @@ def unpad_factors(p_z_given_d, p_w_given_z, n, m, k):
     return np.asarray(p_z_given_d)[:n, :k], np.asarray(p_w_given_z)[:k, :m]
 
 
+def _weighted(sample_weight):
+    return sample_weight is not None and bool(np.any(np.asarray(sample_weight) != 1.0))
+
+
+def _on_device(a, dev):
+    """``a`` as a float32 tensor on ``dev``; a copy from the host waits for it."""
+    if not (isinstance(a, torch.Tensor) and a.device == dev):
+        count("host_syncs")
+    return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+
+class _Staged:
+    """A corpus staged on a device once, dense (:class:`~.driver.PreparedCounts`)
+    or sparse (:class:`~.sell.PreparedSell`). A fit asks either the same:
+    ``device``, ``n``, ``m``, ``nnz``, ``backend`` (``info["backend"]``);
+    ``_padded(k)``, the factors' shapes ``(n_pad, kp, m_pad)`` there, and
+    ``_pad(zd, wz)``, host factors at those shapes; ``_weights(sample_weight)``
+    as ``_fit`` takes them (the dense layout copies them to the device, the
+    sparse one in its loop); ``_steps(precision, path)``, made once for any
+    number of fits (the sparse layout has no bf16 mode and warns at ``"fast"``
+    that the ``path`` runs at default precision); and ``_fit(zd, wz, w, n_iter,
+    n_iter_per_test, tolerance, steps, e_step_thresh, refit=False)``, a
+    :class:`~.fit.FitResult` on the device from factors on the host or the
+    device (``refit``: ``wz`` frozen). Only the sparse layout applies a
+    material ``e_step_thresh``."""
+
+    __slots__ = ()
+
+    @property
+    def shape(self):
+        return (self.n, self.m)
+
+    def _place(self, zd, wz):
+        return _on_device(zd, self.device), _on_device(wz, self.device)
+
+
+def _is_staged(X):
+    """Whether ``X`` is a staged corpus, which a fit takes as it stands."""
+    return isinstance(X, _Staged)
+
+
 def pad_vector(v, n_pad, fill=0.0):
     out = np.full((n_pad,), fill, dtype=np.float32)
     out[: v.shape[0]] = v

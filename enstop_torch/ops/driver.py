@@ -16,12 +16,13 @@ Backends, resolved from the explicit ``device``:
               materially firing ``e_step_thresh`` (> 1e-30) runs ``"sparse"``
 
 A :class:`PreparedCounts` always runs dense and a :class:`~.sell.PreparedSell`
-sparse, whatever the threshold, as in the JAX package.
+sparse, whatever the threshold, as in the JAX package. The layout is decided
+once, where the corpus is staged (:func:`_staged`); past that a fit, a refit
+or the ensemble's runs ask the staged corpus (:class:`~.data._Staged`) and
+never its class.
 """
 
 from __future__ import annotations
-
-import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,11 +31,11 @@ import torch
 from ..profiling import count, is_open, request, span
 from ..utils import check_random_state, standardize_input
 from . import cuda_em, em as em_ops
-from .data import (COL_MULTIPLE, ROW_MULTIPLE, pad_factors, pad_vector, resolve_device,
-                   round_up, ship_coo, unpad_factors)
+from .data import (COL_MULTIPLE, K_MULTIPLE, ROW_MULTIPLE, _is_staged, _Staged, _weighted,
+                   pad_factors, pad_vector, resolve_device, round_up, ship_coo, unpad_factors)
 from .fit import em_fit_loop, em_fit_loop_folded
 from .init import plsa_init
-from .sell import THRESH_MATERIAL, PreparedSell, prepare_sell, sell_fit, sell_refit, word_side
+from .sell import _material_thresh, prepare_sell, word_side
 
 __all__ = [
     "PreparedCounts", "prepare_counts", "plsa_fit", "plsa_refit",
@@ -55,24 +56,6 @@ def resolve_backend(backend, device):
         raise ValueError(f"backend={backend!r} does not run on device {str(device)!r}; "
                          f"use {expected!r}")
     return backend
-
-
-def _sparse_route(X, backend, e_step_thresh):
-    """True where the JAX package runs the sparse path: ``backend="sparse"``
-    or a :class:`PreparedSell`, or raw input under ``backend="auto"`` with a
-    threshold that fires; a :class:`PreparedCounts` never."""
-    if isinstance(X, PreparedSell) or backend == "sparse":
-        return True
-    return (backend == "auto" and not isinstance(X, PreparedCounts)
-            and e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL)
-
-
-def _warn_fast_unsupported(path):
-    warnings.warn(
-        "precision='fast' (bf16 E-step responsibilities) is a dense kernel mode; "
-        f"the {path} path runs at default precision",
-        stacklevel=3,
-    )
 
 
 def kernel_steps(precision="default", word=None):
@@ -173,9 +156,11 @@ def _stage_dense(X, device, x_dtype):
         return Xd, n, m, word_side(rows, cols, vals, m_pad, n_pad)
 
 
-class PreparedCounts:
+class PreparedCounts(_Staged):
     """A device-resident, padded count matrix reusable across fits, with its
-    word-major nonzeros ``word`` (a :class:`~.cuda_sparse.Side`)."""
+    word-major nonzeros ``word`` (a :class:`~.cuda_sparse.Side`). Its fit
+    (:class:`~.data._Staged`) is :func:`fit_padded` on :func:`kernel_steps`,
+    the factors padded; it applies no ``e_step_thresh``, whatever its value."""
 
     __slots__ = ("device_array", "n", "m", "nnz", "backend", "word")
 
@@ -188,8 +173,29 @@ class PreparedCounts:
         self.word = word
 
     @property
-    def shape(self):
-        return (self.n, self.m)
+    def device(self):
+        return self.device_array.device
+
+    def _padded(self, k):
+        n_pad, m_pad = self.device_array.shape
+        return n_pad, round_up(k, K_MULTIPLE), m_pad
+
+    def _pad(self, zd, wz):
+        return pad_factors(zd, wz, *self.device_array.shape)
+
+    def _weights(self, sample_weight):
+        w = np.asarray(sample_weight, dtype=np.float32) if _weighted(sample_weight) else np.ones(
+            self.n, np.float32)
+        count("host_syncs")  # a copy from pageable memory waits
+        return torch.from_numpy(pad_vector(w, self.device_array.shape[0])).to(self.device)
+
+    def _steps(self, precision, path):
+        return kernel_steps(precision, self.word)
+
+    def _fit(self, zd, wz, w, n_iter, n_iter_per_test, tolerance, steps, e_step_thresh=None,
+             refit=False):
+        return (refit_padded if refit else fit_padded)(
+            self.device_array, *self._place(zd, wz), w, n_iter, n_iter_per_test, tolerance, steps)
 
 
 def prepare_counts(X, backend="auto", x_dtype="auto", standardize=True, device="cuda"):
@@ -207,21 +213,7 @@ def prepare_counts(X, backend="auto", x_dtype="auto", standardize=True, device="
     x_dtype = _resolve_x_dtype(X, x_dtype, will_standardize=standardize)
     if standardize:
         X = standardize_input(X)
-    Xd, n, m, word = _stage_dense(X, dev, x_dtype)
-    return PreparedCounts(Xd, n, m, _nnz_of(X), backend, word)
-
-
-def _weights(sample_weight, n, n_pad, device):
-    w = np.asarray(sample_weight, dtype=np.float32) if _weighted(sample_weight) else np.ones(
-        n, np.float32)
-    count("host_syncs")  # a copy from pageable memory waits
-    return torch.from_numpy(pad_vector(w, n_pad)).to(device)
-
-
-def _factors_to(zd, wz, device):
-    """The padded host factors on ``device``: two copies, each waiting."""
-    count("host_syncs", 2)
-    return torch.from_numpy(zd).to(device), torch.from_numpy(wz).to(device)
+    return _staged(X, backend, x_dtype=x_dtype, device=dev)
 
 
 def _read_back(*tensors):
@@ -231,27 +223,31 @@ def _read_back(*tensors):
         return tuple(t.cpu().numpy() for t in tensors)
 
 
-def _stage_or_reuse(X, backend, x_dtype, device):
-    """A :class:`PreparedCounts` of ``X`` (``X`` itself when it is one)."""
-    if isinstance(X, PreparedCounts):
+def _staged(X, backend="auto", e_step_thresh=None, x_dtype="auto", device="cuda",
+            counts=False):
+    """The staged corpus a fit runs on: ``X`` itself when it is one, else ``X``
+    staged on the JAX package's route: the sparse layout for
+    ``backend="sparse"``, and for raw input under ``"auto"`` with a material
+    threshold; the dense one otherwise (a :class:`PreparedCounts` never goes
+    sparse). Neither standardizes, which is the estimators' job. ``counts``:
+    float-typed ``X`` holds raw counts (the ensemble's), which bf16 may hold
+    exactly."""
+    if _is_staged(X):
         return X
+    if backend == "sparse" or (backend == "auto" and _material_thresh(e_step_thresh) is not None):
+        return prepare_sell(X, standardize=False, device=device)
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
-    Xd, n, m, word = _stage_dense(X, dev, _resolve_x_dtype(X, x_dtype))
+    Xd, n, m, word = _stage_dense(X, dev, _resolve_x_dtype(X, x_dtype, not counts))
     return PreparedCounts(Xd, n, m, _nnz_of(X), backend, word)
 
 
 def _check_prepared_init(X, init):
-    if isinstance(X, (PreparedCounts, PreparedSell)) and init != "random" and not isinstance(
-            init, (tuple, list)):
+    if _is_staged(X) and init != "random" and not isinstance(init, (tuple, list)):
         raise ValueError(
             f"{type(X).__name__} supports init='random' or an explicit factor "
             "tuple; data-dependent inits need the raw matrix"
         )
-
-
-def _weighted(sample_weight):
-    return sample_weight is not None and bool(np.any(np.asarray(sample_weight) != 1.0))
 
 
 def _info(n_steps, final_ll, ll_trace, n_tests, wall, nnz, k, backend):
@@ -315,47 +311,18 @@ def _fit(X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance, e_step_t
     rng = check_random_state(random_state)
     cuda_em._check_precision(precision)
     _check_prepared_init(X, init)
-    if _sparse_route(X, backend, e_step_thresh):
-        if precision == "fast":
-            _warn_fast_unsupported("sparse")
-        return _plsa_fit_sparse(X, k, sample_weight, init, n_iter, n_iter_per_test,
-                                tolerance, e_step_thresh, rng, device)
     with span("stage"):
-        prep = _stage_or_reuse(X, backend, x_dtype, device)
-        Xd = prep.device_array
-        dev = Xd.device
-        w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
+        prep = _staged(X, backend, e_step_thresh, x_dtype, device)
+        w = prep._weights(sample_weight)
     with span("init"):
-        p_z_given_d, p_w_given_z = plsa_init(X, k, init=init, rng=rng)
-        zd, wz = pad_factors(p_z_given_d, p_w_given_z, Xd.shape[0], Xd.shape[1])
+        zd, wz = prep._pad(*plsa_init(X, k, init=init, rng=rng))
     with span("loop") as loop:
-        res = fit_padded(Xd, *_factors_to(zd, wz, dev), w, n_iter, n_iter_per_test,
-                         tolerance, kernel_steps(precision, prep.word))
+        res = prep._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance,
+                        prep._steps(precision, "sparse"), e_step_thresh)
         zd_f, wz_f = _read_back(*res.state)
     return (*unpad_factors(zd_f, wz_f, prep.n, prep.m, k),
             _info(res.n_steps, res.final_ll, res.ll_trace, res.n_tests, loop.seconds, prep.nnz,
                   k, prep.backend))
-
-
-def _plsa_fit_sparse(X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance,
-                     e_step_thresh, rng, device):
-    """The sparse-backend fit: O(nnz) memory and work, exact ``e_step_thresh``.
-    Standardization is the estimators' job, as on the dense path."""
-    with span("stage"):
-        prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
-                                                                  device=device)
-        weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
-    with span("init"):
-        # a data-dependent init reads the raw matrix
-        p_z_given_d, p_w_given_z = plsa_init(prep if isinstance(X, PreparedSell) else X, k,
-                                             init=init, rng=rng)
-    with span("loop") as loop:
-        zd, wz, n_steps, final_ll, ll_trace, n_tests = sell_fit(
-            prep, p_z_given_d, p_w_given_z, sample_weight=weight, n_iter=n_iter,
-            n_iter_per_test=n_iter_per_test, tolerance=tolerance, e_step_thresh=e_step_thresh)
-        zd_out, wz_out = _read_back(zd, wz)
-    return zd_out, wz_out, _info(n_steps, final_ll, ll_trace, n_tests, loop.seconds, prep.nnz, k,
-                                 "sparse")
 
 
 def plsa_refit(
@@ -379,30 +346,14 @@ def plsa_refit(
     cuda_em._check_precision(precision)
     k = topics.shape[0]
     topics = np.asarray(topics, dtype=np.float32)
-    if _sparse_route(X, backend, e_step_thresh):
-        if precision == "fast":
-            _warn_fast_unsupported("sparse refit")
-        with span("stage"):
-            prep = X if isinstance(X, PreparedSell) else prepare_sell(X, standardize=False,
-                                                                      device=device)
-            weight = np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
-        with span("init"):
-            p_z_given_d = _refit_init(rng, X.shape[0], k)
-        with span("loop"):
-            zd = sell_refit(prep, p_z_given_d, topics, sample_weight=weight, n_iter=n_iter,
-                            n_iter_per_test=n_iter_per_test, tolerance=tolerance,
-                            e_step_thresh=e_step_thresh)[0]
-            return _read_back(zd)[0]
     with span("stage"):
-        prep = _stage_or_reuse(X, backend, x_dtype, device)
-        Xd = prep.device_array
-        dev = Xd.device
-        w = _weights(sample_weight, prep.n, Xd.shape[0], dev)
+        prep = _staged(X, backend, e_step_thresh, x_dtype, device)
+        w = prep._weights(sample_weight)
     with span("init"):
-        zd, wz = pad_factors(_refit_init(rng, X.shape[0], k), topics, Xd.shape[0], Xd.shape[1])
+        zd, wz = prep._pad(_refit_init(rng, prep.n, k), topics)
     with span("loop"):
-        res = refit_padded(Xd, *_factors_to(zd, wz, dev), w, n_iter, n_iter_per_test,
-                           tolerance, kernel_steps(precision))
+        res = prep._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance,
+                        prep._steps(precision, "sparse refit"), e_step_thresh, refit=True)
         return _read_back(res.state[0])[0][:prep.n, :k]
 
 

@@ -33,12 +33,12 @@ from ..cluster.distances import full_fp32_matmul
 from ..utils import check_random_state
 from .cuda_sparse import doc_pass, word_pass
 from .data import resolve_device, ship_coo
+from .em import _TINY
 from .init import nndsvd_init, randomized_svd
 from .sell import prepare_sell
 
 __all__ = ["nmf_cd", "nmf_frobenius_init", "nmf_fit_mu"]
 
-_TINY = 1e-30
 
 
 def _as_float_matrix(X):

@@ -36,12 +36,16 @@ Not ported, each for a reason:
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
-from ..profiling import count, span
+from ..profiling import span
 from ..utils import standardize_input
-from .cuda_sparse import build_side, doc_pass, word_pass
-from .data import resolve_device, ship_coo
+from .cuda_sparse import _ones_if_none, build_side, doc_pass, word_pass
+from .data import _on_device, _Staged, _weighted, resolve_device, ship_coo
+from .em import _rownorm
 from .fit import em_fit_loop
 
 __all__ = ["THRESH_MATERIAL", "PreparedSell", "prepare_sell", "word_side", "em_step_sell",
@@ -50,8 +54,15 @@ __all__ = ["THRESH_MATERIAL", "PreparedSell", "prepare_sell", "word_side", "em_s
 # The dense paths treat e_step_thresh <= this as a numerical no-op; above it
 # (the ensemble's 1e-16 and anything larger) the exact masked form runs.
 THRESH_MATERIAL = 1e-30
-_TINY = 1e-30
 KINDS = ("auto", "sell", "chunks")
+
+
+def _material_thresh(e_step_thresh):
+    """``e_step_thresh`` as the threshold the sparse passes apply exactly, or
+    None where it cannot fire in float32 (at or below ``THRESH_MATERIAL``)."""
+    if e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL:
+        return float(e_step_thresh)
+    return None
 
 
 def word_side(rows, cols, vals, n_words, n_docs):
@@ -61,10 +72,12 @@ def word_side(rows, cols, vals, n_words, n_docs):
     return build_side(cols[order], rows[order], vals[order], n_words, n_docs)
 
 
-class PreparedSell:
+class PreparedSell(_Staged):
     """A device-resident sparse corpus reusable across fits (the sparse
     counterpart of :class:`~.driver.PreparedCounts`): its doc-major side
-    ``doc`` and word-major side ``word``."""
+    ``doc`` and word-major side ``word``. Its fit (:class:`~.data._Staged`)
+    is the plain loop on :func:`em_step_sell`, the factors at the layout's own
+    shapes (n, k) and (k, m)."""
 
     __slots__ = ("doc", "word", "n", "m", "nnz", "backend")
 
@@ -77,12 +90,44 @@ class PreparedSell:
         self.backend = "sparse"
 
     @property
-    def shape(self):
-        return (self.n, self.m)
-
-    @property
     def device(self):
         return self.doc.device
+
+    def _padded(self, k):
+        return self.n, k, self.m
+
+    def _pad(self, zd, wz):
+        return zd, wz
+
+    def _weights(self, sample_weight):
+        return np.asarray(sample_weight, np.float32) if _weighted(sample_weight) else None
+
+    def _steps(self, precision, path):
+        if precision == "fast":
+            warnings.warn(
+                "precision='fast' (bf16 E-step responsibilities) is a dense kernel mode; "
+                f"the {path} path runs at default precision",
+                stacklevel=3,
+            )
+
+    def _fit(self, zd, wz, w, n_iter, n_iter_per_test, tolerance, steps=None,
+             e_step_thresh=None, refit=False):
+        zd, wz = self._place(zd, wz)
+        if zd.shape != (self.n, wz.shape[0]) or wz.shape[1] != self.m:
+            raise ValueError(f"factors {tuple(zd.shape)} and {tuple(wz.shape)} do not fit the "
+                             f"corpus {self.shape}")
+        w = _ones_if_none(None if w is None else _on_device(w, self.device), zd)
+        thresh = _material_thresh(e_step_thresh)
+
+        def step(state):
+            if refit:
+                new_zd, ll = refit_step_sell(self, *state, w, thresh, compute_ll=False)
+                return (new_zd, state[1]), ll
+            new_zd, new_wz, ll = em_step_sell(self, *state, w, thresh, compute_ll=False)
+            return (new_zd, new_wz), ll
+
+        return em_fit_loop(step, lambda s: log_likelihood_sell(self, *s, w),
+                           (zd.contiguous(), wz.contiguous()), n_iter, n_iter_per_test, tolerance)
 
 
 def prepare_sell(X, standardize=True, kind="auto", device="cuda"):
@@ -101,58 +146,30 @@ def prepare_sell(X, standardize=True, kind="auto", device="cuda"):
         return PreparedSell(doc, word_side(rows, cols, vals, m, n), n, m)
 
 
-def _ones(zd):
-    return torch.ones(zd.shape[0], dtype=torch.float32, device=zd.device)
-
-
-def _normalize(num):
-    return num / num.sum(dim=1, keepdim=True).clamp_min(_TINY)
-
-
 def em_step_sell(prep, zd, wz, w=None, thresh=None, compute_ll=True):
     """One exact EM step on a :class:`PreparedSell` with unpadded factors
     ``zd`` (n, k) and ``wz`` (k, m); returns ``(next_zd, next_wz, ll_of_inputs)``.
     ``thresh``: None for the plain E-step, or the exact ``e_step_thresh``."""
-    w = _ones(zd) if w is None else w
+    w = _ones_if_none(w, zd)
     wzT = wz.t().contiguous()
     AT, ll = word_pass(prep.word, zd, wzT, w, thresh, compute_ll)
     B, _ = doc_pass(prep.doc, zd, wzT, w, thresh, compute_ll=False)
     # with a threshold the accumulators already hold the old factor
     num_zd = B if thresh is not None else zd * B
     num_wz = AT.t() if thresh is not None else wz * AT.t()
-    return _normalize(num_zd), _normalize(num_wz), ll
+    return _rownorm(num_zd), _rownorm(num_wz), ll
 
 
 def refit_step_sell(prep, zd, wz, w=None, thresh=None, compute_ll=True):
     """Frozen-topics step, the doc pass alone: ``(next_zd, ll_of_inputs)``."""
-    B, ll = doc_pass(prep.doc, zd, wz.t().contiguous(), _ones(zd) if w is None else w,
-                     thresh, compute_ll)
-    return _normalize(B if thresh is not None else zd * B), ll
+    B, ll = doc_pass(prep.doc, zd, wz.t().contiguous(), w, thresh, compute_ll)
+    return _rownorm(B if thresh is not None else zd * B), ll
 
 
 def log_likelihood_sell(prep, zd, wz, w=None):
     """The log-likelihood over the nonzeros (never thresholded), from the doc
     pass with its accumulator discarded."""
-    return doc_pass(prep.doc, zd, wz.t().contiguous(), _ones(zd) if w is None else w)[1]
-
-
-def _on_device(a, dev):
-    """``a`` as a float32 tensor on ``dev``; a copy from the host waits for it."""
-    if not (isinstance(a, torch.Tensor) and a.device == dev):
-        count("host_syncs")
-    return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
-
-def _fit_inputs(prep, p_z_given_d, p_w_given_z, sample_weight, e_step_thresh):
-    dev = prep.device
-    zd = _on_device(p_z_given_d, dev)
-    wz = _on_device(p_w_given_z, dev)
-    if zd.shape != (prep.n, wz.shape[0]) or wz.shape[1] != prep.m:
-        raise ValueError(f"factors {tuple(zd.shape)} and {tuple(wz.shape)} do not fit the "
-                         f"corpus {prep.shape}")
-    w = _ones(zd) if sample_weight is None else _on_device(sample_weight, dev)
-    thresholded = e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL
-    return zd.contiguous(), wz.contiguous(), w, float(e_step_thresh) if thresholded else None
+    return doc_pass(prep.doc, zd, wz.t().contiguous(), w)[1]
 
 
 def sell_fit(prep, p_z_given_d, p_w_given_z, sample_weight=None, n_iter=100,
@@ -160,28 +177,15 @@ def sell_fit(prep, p_z_given_d, p_w_given_z, sample_weight=None, n_iter=100,
     """EM fit on a :class:`PreparedSell` through :func:`~.fit.em_fit_loop`.
     Returns ``(zd, wz, n_steps, final_ll, ll_trace, n_tests)``, the factors as
     tensors on the corpus's device."""
-    zd, wz, w, thresh = _fit_inputs(prep, p_z_given_d, p_w_given_z, sample_weight,
-                                    e_step_thresh)
-
-    def step(state):
-        new_zd, new_wz, ll = em_step_sell(prep, state[0], state[1], w, thresh, compute_ll=False)
-        return (new_zd, new_wz), ll
-
-    res = em_fit_loop(step, lambda s: log_likelihood_sell(prep, s[0], s[1], w), (zd, wz),
-                      n_iter, n_iter_per_test, tolerance)
-    return res.state[0], res.state[1], res.n_steps, res.final_ll, res.ll_trace, res.n_tests
+    res = prep._fit(p_z_given_d, p_w_given_z, sample_weight, n_iter, n_iter_per_test, tolerance,
+                    e_step_thresh=e_step_thresh)
+    return (*res.state, *res[1:])
 
 
 def sell_refit(prep, p_z_given_d, topics, sample_weight=None, n_iter=50,
                n_iter_per_test=10, tolerance=0.005, e_step_thresh=1e-32):
     """Frozen-topics refit on a :class:`PreparedSell`; returns the same tuple
     as :func:`sell_fit`."""
-    zd, wz, w, thresh = _fit_inputs(prep, p_z_given_d, topics, sample_weight, e_step_thresh)
-
-    def step(state):
-        new_zd, ll = refit_step_sell(prep, state[0], state[1], w, thresh, compute_ll=False)
-        return (new_zd, state[1]), ll
-
-    res = em_fit_loop(step, lambda s: log_likelihood_sell(prep, s[0], s[1], w), (zd, wz),
-                      n_iter, n_iter_per_test, tolerance)
-    return res.state[0], res.state[1], res.n_steps, res.final_ll, res.ll_trace, res.n_tests
+    res = prep._fit(p_z_given_d, topics, sample_weight, n_iter, n_iter_per_test, tolerance,
+                    e_step_thresh=e_step_thresh, refit=True)
+    return (*res.state, *res[1:])

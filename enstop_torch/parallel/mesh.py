@@ -51,10 +51,10 @@ from ..ops import cuda_em
 from ..ops.cuda_sparse import Side
 from ..ops.data import COL_MULTIPLE, ROW_MULTIPLE, resolve_device, round_up, ship_coo
 from ..ops.driver import PreparedCounts, _resolve_x_dtype, fit_padded, kernel_steps
+from ..ops.em import _TINY, _rownorm
 from ..ops.fit import em_fit_loop_folded
 from ..ops.sell import word_side
 
-_TINY = 1e-30
 
 __all__ = ["Mesh", "local_devices", "process_ranks", "largest_divisor", "make_mesh",
            "make_runs_mesh", "mesh_layout_multiples", "psum", "stage_sharded_counts",
@@ -271,10 +271,6 @@ def _tile_inputs(mesh, tiles, zd, wz, w=None):
                    None if w is None else w[i].to(dev))
 
 
-def _normalize_rows(num):
-    return num / num.sum(dim=1, keepdim=True).clamp_min(_TINY)
-
-
 def build_sharded_em_step(mesh, compute_ll=True):
     """``(tiles, zd, wz, w) -> (next_zd, next_wz, ll_of_inputs)`` over the
     mesh: ``tiles`` from :func:`stage_sharded_counts`, ``zd``, ``wz`` and
@@ -299,7 +295,7 @@ def build_sharded_em_step(mesh, compute_ll=True):
         norm = psum([num.sum(dim=1, keepdim=True) for num in num_wz],
                     num_wz[0].device).clamp_min(_TINY)
         next_wz = [num / norm.to(num.device) for num in num_wz]
-        next_zd = [_normalize_rows(zd[i] * psum(B[i], zd[i].device)) for i in range(n_rows)]
+        next_zd = [_rownorm(zd[i] * psum(B[i], zd[i].device)) for i in range(n_rows)]
         return next_zd, next_wz, psum(lls, zd[0].device, ranks)
 
     return step
@@ -331,7 +327,7 @@ def build_sharded_refit_step(mesh, compute_ll=True):
                                                        compute_ll=compute_ll)
             B[i].append(B_t)
             lls.append(ll)
-        next_zd = [_normalize_rows(zd[i] * psum(B[i], zd[i].device)) for i in range(n_rows)]
+        next_zd = [_rownorm(zd[i] * psum(B[i], zd[i].device)) for i in range(n_rows)]
         return next_zd, psum(lls, zd[0].device, ranks)
 
     return step

@@ -33,10 +33,11 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.cuda_sparse import doc_pass, word_pass
-from ..ops.driver import _weighted
+from ..ops.data import _weighted
+from ..ops.em import _rownorm
 from ..ops.fit import em_fit_loop_folded
 from ..ops.init import plsa_init
-from ..ops.sell import THRESH_MATERIAL, _normalize, prepare_sell
+from ..ops.sell import _material_thresh, prepare_sell
 from ..utils import check_random_state
 from .mesh import Mesh, _grid, gather_rows, local_devices, process_ranks, psum
 
@@ -84,13 +85,6 @@ def _gather_doc_sharded(mesh, parts, bounds):
                            for g in range(len(bounds) - 1)])
 
 
-def _material_thresh(e_step_thresh):
-    """None unless the threshold can fire in float32 (as on one device)."""
-    if e_step_thresh is not None and e_step_thresh > THRESH_MATERIAL:
-        return float(e_step_thresh)
-    return None
-
-
 def build_sharded_sparse_fit(mesh, n_iter, n_iter_per_test, refit=False, e_step_thresh=None):
     """``(preps, zd, wz, w, tolerance) -> FitResult`` over the docs mesh, by
     :func:`~..ops.fit.em_fit_loop_folded` as in JAX: ``preps`` from
@@ -117,11 +111,11 @@ def build_sharded_sparse_fit(mesh, n_iter, n_iter_per_test, refit=False, e_step_
         for prep, zd_s, w_s, dev in shards(preps, zd, w):
             AT_s, ll = word_pass(prep.word, zd_s, wzT[dev], w_s, thresh, compute_ll)
             B, _ = doc_pass(prep.doc, zd_s, wzT[dev], w_s, thresh, compute_ll=False)
-            next_zd.append(_normalize(B if thresh is not None else zd_s * B))
+            next_zd.append(_rownorm(B if thresh is not None else zd_s * B))
             AT.append(AT_s)
             lls.append(ll)
         AT = psum(AT, home, ranks).t()
-        next_wz = _normalize(AT if thresh is not None else wz * AT)
+        next_wz = _rownorm(AT if thresh is not None else wz * AT)
         return (next_zd, next_wz), psum(lls, home, ranks)
 
     def refit_step(preps, state, w, compute_ll):
@@ -130,7 +124,7 @@ def build_sharded_sparse_fit(mesh, n_iter, n_iter_per_test, refit=False, e_step_
         lls, next_zd = [], []
         for prep, zd_s, w_s, dev in shards(preps, zd, w):
             B, ll = doc_pass(prep.doc, zd_s, wzT[dev], w_s, thresh, compute_ll)
-            next_zd.append(_normalize(B if thresh is not None else zd_s * B))
+            next_zd.append(_rownorm(B if thresh is not None else zd_s * B))
             lls.append(ll)
         return (next_zd, wz), psum(lls, home, ranks)
 

@@ -7,9 +7,11 @@ against each other phase by phase on the card.
 Imports ``enstop_torch`` and the benchmark's corpus generator from
 ``<checkout>``, makes the cell's corpus from a fixed seed, warms one fit,
 then times ``--fits`` fits (the host's clock, the device synchronised before
-each) and the median of each wrapped function a fit. Wraps functions that
-every checkout since the benchmark has, so that it needs no spans. Prints one
-JSON line; needs a CUDA device. Run it for each checkout in turns.
+each) and the median of each wrapped function a fit. Wraps those of its
+functions that the checkout has (the staging function is ``_staged`` in one
+checkout, ``_stage_or_reuse`` and ``_weights`` in an older one), so that it
+needs no spans. Prints one JSON line; needs a CUDA device. Run it for each
+checkout in turns.
 """
 
 import argparse
@@ -21,7 +23,7 @@ from pathlib import Path
 
 WRAPPED = {"models.plsa": ("validate_corpus", "split_zero_rows", "plsa_fit"),
            "ops.driver": ("ship_coo", "word_side", "plsa_init", "_weights", "fit_padded",
-                          "_stage_or_reuse", "pad_factors")}
+                          "_stage_or_reuse", "_staged", "pad_factors")}
 
 
 def main():
@@ -58,7 +60,8 @@ def main():
     for module, names in WRAPPED.items():
         mod = importlib.import_module(f"enstop_torch.{module}")
         for name in names:
-            setattr(mod, name, timed(getattr(mod, name), name))
+            if hasattr(mod, name):
+                setattr(mod, name, timed(getattr(mod, name), name))
     cell = find_cell(args.cell, root)
     X = make_corpus(cell, args.seed, "cuda")["train"]
     kw = dict(cell.traffic["estimator"], n_components=int(cell.config["n_components"]),
