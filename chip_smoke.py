@@ -100,7 +100,15 @@ launch counts set to 0 just before it and read just after:
     data_home=<empty directory>)`` raises ``RuntimeError`` (no ``.npz``, and
     no scikit-learn or no cache); (c) ``get_metadata_routing()`` and
     ``set_fit_request()`` raise ``RuntimeError`` without scikit-learn loaded.
-    (b) and (c) change no launch count and no allocated byte.
+    (b) and (c) change no launch count and no allocated byte;
+17. the 20NG ensemble's runs in groups on the batched kernel (phase 20),
+    the fan-out's route (``ops/driver.py`` ``fit_padded_runs``), against the
+    same 16 runs one after another on the staged corpus: the stack and each
+    run's steps, final state, final LL and LL trace bit for bit, and the
+    whole ``EnsembleTopics.fit`` on each route, its stable topics and
+    embedding bit for bit. It prints the groups, both routes' walls, their
+    device high-water against the staging's (which the runs must not pass)
+    and the counters ``em_steps`` and ``batched_run_steps``.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -1537,6 +1545,103 @@ def loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, total
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def ensemble_batch_phase(X, smi, cuda_em, em, totals):
+    """Phase 20 at 20NG, k = 20: the ensemble's runs in groups on the batched
+    kernel against the same runs one after another, bit for bit, with the
+    groups, the walls and the device high-water of each route."""
+    import enstop_torch
+    from enstop_torch.models import ensemble as ens
+    from enstop_torch.ops.data import _Staged
+    from enstop_torch.ops.driver import PreparedCounts, _staged
+
+    t_phase = time.perf_counter()
+    k, n_runs = ENSEMBLE["n_components"], ENSEMBLE["n_starts"]
+    schedule = dict(n_iter=ENSEMBLE["n_iter"], n_iter_per_test=10, tolerance=1e-3)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prep = _staged(X.astype(np.float32), device=dev, counts=True)
+    torch.cuda.synchronize()
+    staging_peak = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    groups = prep._run_groups(k, n_runs)
+    batched_route = PreparedCounts._fit_runs
+
+    def per_run(self, *args):
+        return _Staged._fit_runs(self, *args)
+
+    def fan_out():
+        """The fan-out's stack (on the host) and steps, its wall and device
+        high-water (two calls, the second's, with nothing else held)."""
+        for _ in range(2):
+            stack = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stack, steps = ens._device_resident_plsa_runs(
+                None, k, n_runs, np.random.RandomState(ENSEMBLE["random_state"]),
+                prepared=prep, device=dev, **schedule)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return stack.cpu(), steps, wall, torch.cuda.max_memory_allocated() - base
+
+    def results():
+        """Each run's state (on the host), steps, final LL and LL trace."""
+        runs = ens.bootstrap_inputs(prep, k, n_runs,
+                                    np.random.RandomState(ENSEMBLE["random_state"]))
+        return {i: (res.state[0].cpu(), res.state[1].cpu(), *res[1:])
+                for i, res in prep._fit_runs(runs, n_runs, k, *schedule.values(),
+                                             prep._steps("default", ""))}
+
+    def fit():
+        """The estimator's stable topics, embedding, run steps, counters and
+        the ``runs`` span in ms."""
+        model = enstop_torch.EnsembleTopics(device="cuda", **ENSEMBLE).fit(X)
+        info = model.fit_info_
+        runs_ms = 1e3 * next(sp_["end"] - sp_["start"] for sp_ in info["trace"]["spans"]
+                             if sp_["name"] == "runs")
+        return (model.components_, model.embedding_, info["run_steps"],
+                info["trace"]["counters"], runs_ms)
+
+    reset_counts(cuda_em, em)
+    stack_b, steps_b, wall_b, peak_b = fan_out()
+    res_b, fit_b = results(), fit()
+    read_counts("phase 20 batched runs", ("batch", "batch_word", "em", "word_pass"), cuda_em,
+                em, totals)
+    PreparedCounts._fit_runs = per_run
+    try:
+        stack_s, steps_s, wall_s, peak_s = fan_out()
+        res_s, fit_s = results(), fit()
+    finally:
+        PreparedCounts._fit_runs = batched_route
+    same_runs = all(
+        torch.equal(res_b[i][0], res_s[i][0]) and torch.equal(res_b[i][1], res_s[i][1])
+        and res_b[i][2:4] == res_s[i][2:4] and res_b[i][5] == res_s[i][5]
+        and np.array_equal(res_b[i][4], res_s[i][4], equal_nan=True) for i in range(n_runs))
+    same_stack = torch.equal(stack_b, stack_s) and steps_b == steps_s
+    same_fit = all(np.array_equal(a, b) for a, b in zip(fit_b[:2], fit_s[:2]))
+    same_fit &= fit_b[2] == fit_s[2]
+    counters = {name: (fit_b[3].get(name), fit_s[3].get(name))
+                for name in ("em_steps", "batched_run_steps", "host_syncs")}
+    runs_ms = (fit_b[4], fit_s[4])
+    print(f"phase 20 batched ensemble runs at 20NG on {smi}: {n_runs} runs in groups {groups}, "
+          f"steps {steps_b}; the fan-out batched {wall_b:.4f} s, one after another "
+          f"{wall_s:.4f} s ({wall_s / wall_b:.2f} times); device high-water over the staged "
+          f"layout ({resident / 2**20:.1f} MiB): staging {(staging_peak - resident) / 2**20:.1f} "
+          f"MiB, batched runs {(peak_b - resident) / 2**20:.1f} MiB, one after another "
+          f"{(peak_s - resident) / 2**20:.1f} MiB; stack and steps "
+          f"{'bit for bit the same' if same_stack else 'DIFFER'}; each run's state, steps, "
+          f"final LL and trace {'bit for bit the same' if same_runs else 'DIFFER'}")
+    print(f"  EnsembleTopics.fit, batched / one after another: runs span {runs_ms[0]:.2f} / "
+          f"{runs_ms[1]:.2f} ms, stable topics and embedding "
+          f"{'bit for bit the same' if same_fit else 'DIFFER'}, counters (batched, one after "
+          f"another) {json.dumps(counters)}; phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    check(same_stack and same_runs, "the batched runs are the per-run runs bit for bit")
+    check(same_fit, "the batched ensemble is the per-run ensemble bit for bit")
+    check(peak_b <= staging_peak, "the batched runs stay under the staging's high-water")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2185,6 +2290,7 @@ def main():
         table.update(part)
     contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals)
     loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, totals)
+    ensemble_batch_phase(X, smi, cuda_em, em, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

@@ -214,12 +214,14 @@ def bootstrap_inputs(prepared, k, n_runs, rng, bootstrap=True, init="random", X=
     in the JAX package's order: one ``randint`` for the init seed when
     ``init="random"`` (run ``i`` then seeds its device generator with
     ``seed * 2**20 + i``), then per run the init (a factor tuple draws
-    nothing) and one ``multinomial(n, 1/n)``."""
+    nothing) and one ``multinomial(n, 1/n)``. The generator keeps no
+    reference to a run's tensors once it has yielded them."""
     n, m, dev = prepared.n, prepared.m, prepared.device
     n_pad, kp, m_pad = prepared._padded(k)
     uniform = np.full(n, 1.0 / n)
     base_seed = int(rng.randint(np.iinfo(np.int32).max)) if init == "random" else None
-    for i in range(n_runs):
+
+    def one_run(i):
         if base_seed is not None:
             zd, wz = _device_init(n_pad, kp, n, k, m_pad, m, base_seed * (1 << 20) + i, dev)
         else:
@@ -229,7 +231,10 @@ def bootstrap_inputs(prepared, k, n_runs, rng, bootstrap=True, init="random", X=
             zd, wz = (torch.from_numpy(a).to(dev) for a in factors)
         counts = (rng.multinomial(n, uniform) if bootstrap else np.ones(n)).astype(np.float32)
         count("host_syncs")
-        yield zd, wz, torch.from_numpy(pad_vector(counts, n_pad)).to(dev)
+        return zd, wz, torch.from_numpy(pad_vector(counts, n_pad)).to(dev)
+
+    for i in range(n_runs):
+        yield one_run(i)
 
 
 def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
@@ -238,18 +243,27 @@ def _device_resident_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random",
                                prepared=None, device="cuda"):
     """``n_runs`` bootstrap fits against ONE staged copy of X (dense, or the
     sparse layout for ``backend="sparse"``), each bootstrap as document
-    weights and each run the staged corpus's fit. As in the JAX package, the
-    runs take no ``e_step_thresh``. Returns the ``(n_runs * k, m)`` stack,
-    which stays on the device, and each run's EM steps."""
+    weights, through the staged corpus's ``_fit_runs``: on the dense layout
+    at the fp32 precisions the runs advance in groups on the batched kernel
+    (``ops/driver.py`` ``fit_padded_runs``), each retired at its own test
+    with the single-run schedule and bits; the sparse layout and
+    ``precision="fast"`` fit one run after another. As in the JAX package,
+    the runs take no ``e_step_thresh``. Returns the ``(n_runs * k, m)``
+    stack, which stays on the device, and each run's EM steps; the counter
+    ``batched_run_steps`` counts the run-steps taken in batched launches."""
     if prepared is None:
         prepared = _staged(X, backend, x_dtype=x_dtype, device=device, counts=True)
     steps = prepared._steps(precision, "sparse ensemble fan-out")
-    topics, run_steps = [], []
-    for zd, wz, w in bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X):
-        res = prepared._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance, steps)
-        topics.append(res.state[1][:k, :prepared.m])
-        run_steps.append(res.n_steps)
-    return torch.cat(topics, dim=0), run_steps
+    m = prepared.m
+    stack = torch.empty((n_runs * k, m), dtype=torch.float32, device=prepared.device)
+    run_steps = [0] * n_runs
+    count("batched_run_steps", 0)  # present where the runs go one after another
+    runs = bootstrap_inputs(prepared, k, n_runs, rng, bootstrap, init, X)
+    for i, res in prepared._fit_runs(runs, n_runs, k, n_iter, n_iter_per_test, tolerance, steps):
+        stack[i * k:(i + 1) * k] = res.state[1][:k, :m]
+        run_steps[i] = res.n_steps
+        del res  # a run's factors go before the next run is drawn
+    return stack, run_steps
 
 
 def _sharded_plsa_runs(X, k, n_runs, rng, bootstrap=True, init="random", n_iter=100,

@@ -13,7 +13,8 @@ on a CUDA tensor it launches the kernels or raises: the row pass of
 one launch, counted as ``"batch_word"``. ``batched_em_step``
 normalises outside the kernel, as JAX does; ``batched_em_fit`` runs a fixed
 number of steps, with no log-likelihood, no tests and no early stop, as in
-JAX.
+JAX. ``batched_em_step_`` is the step in place on a group's tables, each
+run's next factors a single-run ``em_step_fused``'s bit for bit.
 
 ``precision``: ``"default"``, ``"highest"`` and ``"fast"`` all run fp32. The
 JAX batch kernel has no bf16-responsibilities layout, and its ``"fast"``
@@ -33,8 +34,14 @@ compacts its row's nonzeros into a queue of ``BATCH_STREAM.queue`` entries in
 shared memory and walks it once a run (a row with more nonzeros is streamed
 again for each run after the first).
 
-``EnsembleTopics`` does not use this path: as in the JAX package, it fits
-each bootstrap on its own, with per-run early stopping.
+``EnsembleTopics`` fits its bootstrap runs on this path where the corpus is
+staged dense (a ``PreparedCounts``) and the step is fp32 (``"default"``,
+``"highest"``): ``ops/driver.py`` ``fit_padded_runs`` advances a group of runs
+by ``batched_em_step_`` between test points and retires each run at its own
+test, so every run keeps the single-run schedule, early stop and bits. The
+sparse layout (``PreparedSell``) and ``precision="fast"`` (bf16
+responsibilities, which this kernel has no layout for) fit one run after
+another.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from .cuda_sparse import MAX_KP, launch_pass
 from .data import resolve_device
 
 __all__ = ["BATCH_STREAM", "batch_rows", "batch_words", "batched_accumulators",
-           "batched_em_step", "batched_em_fit"]
+           "batched_em_step", "batched_em_step_", "batched_em_fit"]
 
 # the row pass's stream: a queue that holds a whole row of the corpora at hand
 # (a 20NG row has at most 196 nonzeros), so X is streamed once for all runs;
@@ -140,6 +147,37 @@ def batched_em_step(X, zds, wzs, ws=None, precision="default", word=None):
     A, B = batched_accumulators(X, zds, wzs, ws, precision, word)
     next_wz = em_ops._rownorm(wzs * A)
     return em_ops._rownorm(zds * B), next_wz
+
+
+def _rownorm_runs_(P, out):
+    """``em._rownorm`` of each run's rows of ``P`` (R, rows, cols) into ``out``:
+    the sums run by run, so each run's sum is that of a single-run tensor (a
+    reduction's order follows its tensor's shape), the quotients over the
+    batch (elementwise, the same bits)."""
+    S = P.new_empty((*P.shape[:-1], 1))
+    for r in range(P.shape[0]):
+        torch.sum(P[r], dim=-1, keepdim=True, out=S[r])
+    torch.div(P, S.clamp_min_(em_ops._TINY), out=out)
+
+
+def batched_em_step_(X, zds, wzs, wzT, ws, word=None):
+    """One EM step of every run in place: ``zds`` (R, n, kp) and ``wzs`` (R, kp,
+    m) take the next factors, and on a CUDA tensor ``wzT`` (R, m, kp), their
+    transpose, too (None on the CPU); ``ws`` (R, n) are the document weights;
+    all contiguous. Each run's next factors are a single-run
+    ``em_step_fused``'s bit for bit: A and B as :func:`batched_accumulators`
+    gives them, normalised as ``em._rownorm`` normalises them. On the card
+    the word pass runs first, so its partials are let go before B is made."""
+    if _on_cpu(X):
+        A, B = em_ops.batched_accumulators_dense(X, zds, wzs, ws)
+    else:
+        A = batch_words(word_side_of(X) if word is None else word, zds, wzT, ws).transpose(1, 2)
+        B = batch_rows(X, zds, wzT)
+    _rownorm_runs_(wzs.mul_(A), wzs)
+    del A
+    _rownorm_runs_(B.mul_(zds), zds)
+    if wzT is not None:
+        wzT.copy_(wzs.transpose(1, 2))
 
 
 def _on(device, a, dtype=None):

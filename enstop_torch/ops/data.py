@@ -87,8 +87,12 @@ class _Staged:
     that the ``path`` runs at default precision); and ``_fit(zd, wz, w, n_iter,
     n_iter_per_test, tolerance, steps, e_step_thresh, refit=False)``, a
     :class:`~.fit.FitResult` on the device from factors on the host or the
-    device (``refit``: ``wz`` frozen). Only the sparse layout applies a
-    material ``e_step_thresh``."""
+    device (``refit``: ``wz`` frozen); ``_fit_runs(runs, n_runs, k, n_iter,
+    n_iter_per_test, tolerance, steps)``, ``(i, FitResult)`` for each of
+    ``n_runs`` runs of ``k`` topics that ``runs`` yields as ``(zd, wz, w)`` on
+    the device, in the order they end (here one after another by ``_fit``; the
+    dense layout fits them in groups on the batched step). Only the sparse
+    layout applies a material ``e_step_thresh``."""
 
     __slots__ = ()
 
@@ -98,6 +102,10 @@ class _Staged:
 
     def _place(self, zd, wz):
         return _on_device(zd, self.device), _on_device(wz, self.device)
+
+    def _fit_runs(self, runs, n_runs, k, n_iter, n_iter_per_test, tolerance, steps):
+        for i, (zd, wz, w) in enumerate(runs):
+            yield i, self._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance, steps)
 
 
 def _is_staged(X):

@@ -24,23 +24,25 @@ never its class.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..profiling import count, is_open, request, span
 from ..utils import check_random_state, standardize_input
-from . import cuda_em, em as em_ops
+from . import cuda_batch, cuda_em, em as em_ops
 from .data import (COL_MULTIPLE, K_MULTIPLE, ROW_MULTIPLE, _is_staged, _Staged, _weighted,
                    pad_factors, pad_vector, resolve_device, round_up, ship_coo, unpad_factors)
-from .fit import em_fit_loop, em_fit_loop_folded
+from .fit import FitResult, _Trace, em_fit_loop, em_fit_loop_folded
 from .init import plsa_init
 from .sell import _material_thresh, prepare_sell, word_side
 
 __all__ = [
     "PreparedCounts", "prepare_counts", "plsa_fit", "plsa_refit",
     "resolve_device", "resolve_backend", "kernel_steps", "plain_steps",
-    "fit_padded", "refit_padded",
+    "fit_padded", "fit_padded_runs", "refit_padded",
 ]
 
 
@@ -61,8 +63,11 @@ def resolve_backend(backend, device):
 def kernel_steps(precision="default", word=None):
     """The step functions of the fit loops, through the :mod:`.cuda_em`
     wrappers (kernels on CUDA tensors, plain ops on CPU tensors). ``word``:
-    the word-major nonzeros of the X the steps get (``PreparedCounts.word``)."""
-    cuda_em._check_precision(precision)
+    the word-major nonzeros of the X the steps get (``PreparedCounts.word``).
+    At the fp32 precisions they include ``em_batch``, the batched step in
+    place on a group of runs (:func:`.cuda_batch.batched_em_step_`); the
+    batched kernel has no bf16-responsibilities layout."""
+    fast = cuda_em._check_precision(precision)
 
     def em(X, zd, wz, w):
         return cuda_em.em_step_fused(X, zd, wz, w, compute_ll=False, precision=precision,
@@ -78,7 +83,13 @@ def kernel_steps(precision="default", word=None):
     def ll(X, zd, wz, w):
         return cuda_em.log_likelihood_fused(X, zd, wz, w, precision=precision)
 
-    return {"em": em, "em_ll": em_ll, "refit": refit, "ll": ll}
+    steps = {"em": em, "em_ll": em_ll, "refit": refit, "ll": ll}
+    if not fast:
+        def em_batch(X, zds, wzs, wzT, ws):
+            cuda_batch.batched_em_step_(X, zds, wzs, wzT, ws, word)
+
+        steps["em_batch"] = em_batch
+    return steps
 
 
 def plain_steps(precision="default"):
@@ -103,6 +114,112 @@ def fit_padded(Xd, zd, wz, w, n_iter, n_iter_per_test, tolerance, steps):
         lambda s: steps["ll"](Xd, s[0], s[1], w),
         (zd, wz), n_iter, n_iter_per_test, tolerance,
     )
+
+
+def fit_padded_runs(Xd, runs, sizes, n_iter, n_iter_per_test, tolerance, steps):
+    """EM of many runs on one padded ``Xd``, a group of runs at a time, each run
+    on :func:`em_fit_loop_folded`'s schedule with its bits, its steps and its
+    log-likelihood trace.
+
+    ``runs`` yields each run's padded ``(zd, wz, w)`` on Xd's device; ``sizes``
+    are the groups' sizes in order, summing to the number of runs. A group's
+    runs are drawn in order into its tables and start together, so their test
+    points (after steps 1, 1 + npt, 1 + 2 npt, ...) coincide. Between tests
+    every live run advances by ``steps["em_batch"]``, one pass over Xd a step
+    for the group; the step after a test point T is each live run's own
+    ``steps["em_ll"]`` step, whose log-likelihood is LL(state_T), and the
+    group's values come back in one read. A run that converges is retired at
+    T with state_T (its folded step discarded) and the group's tables shrink;
+    a test point at ``n_iter`` reads ``steps["ll"]``. Yields ``(i,
+    FitResult)`` as run ``i`` ends; its state is views of the group's tables,
+    which hold until the next item is drawn. Counts the run-steps taken in
+    batched launches (``batched_run_steps``)."""
+    n_iter, npt = int(n_iter), max(int(n_iter_per_test), 1)
+    runs = enumerate(runs)
+    for size in sizes:
+        ids, zds, wzs, ws = [], None, None, None
+        for j, (i, (zd, wz, w)) in enumerate(itertools.islice(runs, size)):
+            if j == 0:
+                zds = zd.new_empty((size, *zd.shape), dtype=torch.float32)
+                wzs = wz.new_empty((size, *wz.shape), dtype=torch.float32)
+                ws = w.new_empty((size, *w.shape), dtype=torch.float32)
+            zds[j].copy_(zd)
+            wzs[j].copy_(wz)
+            ws[j].copy_(w)
+            ids.append(i)
+            del zd, wz, w  # the tables hold the run now
+        yield from _fit_group(Xd, ids, zds, wzs, ws, n_iter, npt, tolerance, steps)
+
+
+def _fit_group(Xd, ids, zds, wzs, ws, n_iter, npt, tolerance, steps):
+    """:func:`fit_padded_runs` for one group: ``ids`` the runs' indices, their
+    factors and weights in the tables ``zds`` (R, n, kp), ``wzs`` (R, kp, m),
+    ``ws`` (R, n)."""
+    wzT = wzs.transpose(1, 2).contiguous() if Xd.is_cuda else None
+    tables = [t for t in (zds, wzs, wzT, ws) if t is not None]
+    R, batched = len(ids), 0
+
+    def read(lls):
+        """Each run's LL as a float32, the group's in one read."""
+        count("host_syncs")
+        return torch.stack(lls).cpu().numpy()
+
+    def ll_steps(fn):
+        outs = [fn(Xd, zds[j], wzs[j], ws[j]) for j in range(R)]
+        return outs, read([o[-1] for o in outs])
+
+    def take(outs, keep):
+        # the continuing runs take their folded step's state
+        for j in keep:
+            zds[j].copy_(outs[j][0])
+            wzs[j].copy_(outs[j][1])
+            if wzT is not None:
+                wzT[j].copy_(outs[j][1].t())
+
+    def ended(j, n_steps, rec):
+        return ids[j], FitResult((zds[j], wzs[j]), n_steps, float(rec.prev), rec.trace, rec.t)
+
+    # the first step carries LL(state0) out for free
+    outs, lls = ll_steps(steps["em_ll"])
+    recs = [_Trace(ll, tolerance) for ll in lls]
+    if n_iter == 0:
+        for j in range(R):
+            yield ended(j, 0, recs[j])
+        return
+    take(outs, range(R))
+    del outs
+    done = next_tp = 1
+    while R and (done < n_iter or next_tp <= n_iter):
+        T = min(next_tp, n_iter)
+        for _ in range(T - done):
+            steps["em_batch"](Xd, zds[:R], wzs[:R], None if wzT is None else wzT[:R], ws[:R])
+        batched += (T - done) * R
+        if T < next_tp:  # the steps after the last test point up to n_iter
+            done = n_iter
+            continue
+        if T < n_iter:
+            outs, lls = ll_steps(steps["em_ll"])
+            done = T + 1
+        else:
+            outs, lls = None, read([steps["ll"](Xd, zds[j], wzs[j], ws[j]) for j in range(R)])
+            done = T
+        converged = [recs[j].test(lls[j]) for j in range(R)]
+        for j in range(R):
+            if converged[j]:  # the reference stops AT the test point
+                yield ended(j, T, recs[j])
+        keep = [j for j in range(R) if not converged[j]]
+        if outs is not None:
+            take(outs, keep)
+        del outs
+        for new, old in enumerate(keep):  # the retired runs leave the tables
+            if new != old:
+                for t in tables:
+                    t[new].copy_(t[old])
+        ids, recs, R = [ids[j] for j in keep], [recs[j] for j in keep], len(keep)
+        next_tp = T + npt
+    for j in range(R):
+        yield ended(j, done, recs[j])
+    count("batched_run_steps", batched)
 
 
 def refit_padded(Xd, zd, wz, w, n_iter, n_iter_per_test, tolerance, steps):
@@ -196,6 +313,39 @@ class PreparedCounts(_Staged):
              refit=False):
         return (refit_padded if refit else fit_padded)(
             self.device_array, *self._place(zd, wz), w, n_iter, n_iter_per_test, tolerance, steps)
+
+    def _fit_runs(self, runs, n_runs, k, n_iter, n_iter_per_test, tolerance, steps):
+        """The runs together on the batched step (:func:`fit_padded_runs`, in
+        the groups of :meth:`_run_groups`) where ``steps`` has one, else one
+        after another."""
+        if "em_batch" not in steps:
+            return super()._fit_runs(runs, n_runs, k, n_iter, n_iter_per_test, tolerance, steps)
+        return fit_padded_runs(self.device_array, runs, self._run_groups(k, n_runs), n_iter,
+                               n_iter_per_test, tolerance, steps)
+
+    def _run_groups(self, k, n_runs):
+        """The sizes of the groups :meth:`_fit_runs` fits ``n_runs`` runs of
+        ``k`` topics in: as many runs a group as keep the runs' device memory
+        within what this layout's staging held beside it, and the groups as
+        even as that allows.
+
+        Staging held, as it built the word side, the COO (rows and columns as
+        int64 and the values at X's width), the sort's order (int64) and the
+        COO gathered by it: ``40 + 2 * X.element_size()`` bytes a nonzero. The
+        runs hold, besides the layout, the topic stack (``n_runs * k * m``
+        float32) and one run's own step at a test point (its B, wzT, A and
+        word-pass partials), and for each run of a group its tables (zd, wz,
+        wzT, w) and the larger of a batched step's A and word-pass partials
+        (``kp * (m_pad + n_seg)``) or a test point's next zd and wz (``kp *
+        (n_pad + m_pad)``)."""
+        n_pad, kp, m_pad = self._padded(k)
+        n_seg = self.word.n_seg
+        staging = self.word.nnz * (40 + 2 * self.device_array.element_size())
+        fixed = 4 * (n_runs * k * self.m + n_pad * kp + 2 * kp * m_pad + n_seg * kp)
+        per_run = 4 * (n_pad * kp + 3 * kp * m_pad + n_pad + kp * max(n_seg, n_pad))
+        most = max(1, (staging - fixed) // per_run)
+        n_groups = -(-n_runs // most)
+        return [n_runs // n_groups + (g < n_runs % n_groups) for g in range(n_groups)]
 
 
 def prepare_counts(X, backend="auto", x_dtype="auto", standardize=True, device="cuda"):

@@ -56,7 +56,10 @@ The spans of the program, each under its parent, in order:
   ``staging``   the input cast and the corpus staged once for every run
                 (with ``stage.copy``, ``stage.coo`` and ``stage.layout``)
   ``runs``      the bootstrap runs (counters ``runs`` and ``em_steps``, the
-                sum of their EM steps, for the device fan-outs)
+                sum of their EM steps, for the device fan-outs, and
+                ``batched_run_steps``, the run-steps the weights fan-out
+                took in batched launches: 0 where its runs go one after
+                another)
   ``combine``   the stable topics (counter ``stable_topics``):
     ``combine.distances``  the distance matrix of the runs' topics
     ``combine.layout``     the UMAP layout (``"hellinger_umap"`` only;

@@ -16,7 +16,13 @@ cell's corpus made from the seed by the benchmark's generator:
    the time of its copy to the host;
 3. one traced call (``torch.profiler``, CPU and CUDA activity): the device's
    busy share and its idle time by innermost span
-   (``profiling.idle_by_span``).
+   (``profiling.idle_by_span``);
+4. one call whose top-level spans (``validate``, ``staging``, ``runs``,
+   ``combine``, ``refit``) each read the device's high-water of
+   ``torch.cuda.max_memory_allocated`` while they ran, and what was allocated
+   as each began, above what the call started from, with the counters
+   ``em_steps`` and ``batched_run_steps`` (absent where the program has no
+   such counter).
 
 Writes ``chiprun_out/torch_ensemble_spans.json``; needs a CUDA device.
 """
@@ -86,6 +92,44 @@ def traced(cell, X, seed):
     return idle
 
 
+def span_peaks(cell, X, seed):
+    """Each top-level span's device high-water over the call's start, in
+    bytes: the peak statistics are reset as each such span begins and read as
+    it ends (the card waits at both)."""
+    cls = profiling._Span
+    enter, exit_ = cls.__enter__, cls.__exit__
+    base, peaks = None, {}
+
+    def top(span):
+        return span.request is not None and span.parent == 0
+
+    def entered(span):
+        if top(span):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            peaks[span.name] = {"at_start": torch.cuda.memory_allocated() - base}
+        return enter(span)
+
+    def exited(span, *exc):
+        out = exit_(span, *exc)
+        if top(span):
+            torch.cuda.synchronize()
+            peaks[span.name]["peak"] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    model = _model(cell, random_state(seed, 300))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cls.__enter__, cls.__exit__ = entered, exited
+    try:
+        model.fit(X)
+    finally:
+        cls.__enter__, cls.__exit__ = enter, exit_
+    counters = model.fit_info_["trace"]["counters"]
+    return {"bytes": peaks, "counters": {k: counters.get(k) for k in
+                                         ("em_steps", "batched_run_steps", "runs")}}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2400171100)
@@ -107,6 +151,8 @@ def main():
         print(name, "untraced:", json.dumps(rec["untraced"]), flush=True)
         rec["traced"] = traced(cell, X, args.seed)
         print(name, "traced:", json.dumps(rec["traced"]), flush=True)
+        rec["span_peaks"] = span_peaks(cell, X, args.seed)
+        print(name, "span peaks:", json.dumps(rec["span_peaks"]), flush=True)
         out[name] = rec
         del X
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

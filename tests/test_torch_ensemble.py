@@ -17,6 +17,12 @@ exactly). Tolerances:
   cluster for cluster: its spectral init is ill-conditioned when the stack
   has near-disconnected groups, and the two packages' Hellinger matrices
   differ in the last float32 bits (held to 1e-6 in test_torch_cluster.py).
+* The dense fan-out's runs, fitted in groups on the batched step, against
+  the same runs one after another on the CPU: bit for bit the stack, each
+  run's steps, final state and log-likelihood trace
+  (``test_batched_runs_are_the_per_run_loops``); the counter
+  ``batched_run_steps`` is each run's steps less its folded test steps
+  there, and 0 on the routes that fit one run after another.
 * ``EnsembleTopics.fit_transform`` on a well-separated corpus: the same
   ``n_components_``; with ``topic_combination="hellinger"`` stable topics
   within 1e-6 and embeddings within 1e-5; with the default
@@ -40,6 +46,8 @@ from enstop_torch.cluster.umap import umap_embed as port_umap_embed
 from enstop_torch.models import ensemble as port_ens
 from enstop_torch.ops import cuda_em, cuda_sparse
 from enstop_torch.ops import em as port_em
+from enstop_torch.ops.data import _Staged
+from enstop_torch.ops.driver import _staged
 from enstop_torch.synthetic import synthetic_corpus
 from enstop_tpu.cluster.distances import all_pairs_hellinger_distance as jax_hellinger
 from enstop_tpu.cluster.hdbscan import HDBSCAN as JaxHDBSCAN
@@ -113,12 +121,16 @@ def test_stack_and_bootstrap_weights_match_jax(corpus, jax_stacks, precision, to
     assert got.shape == want.shape == (4 * K, X.shape[1])
     assert _maxrel(got, want) <= tol
     np.testing.assert_allclose(got.sum(1), 1.0, rtol=1e-5)
-    # "fast" ran the bf16r plain steps, "default" the float32 ones
-    em_key = "em_bf16r" if precision == "fast" else "em"
-    assert port_em.CALLS[em_key] - calls[em_key] == 4 * 20
-
     prepared = enstop_torch.prepare_counts(X.astype(np.float32), standardize=False,
                                            device="cpu")
+    # "fast" ran the bf16r plain steps, one run after another; "default" the
+    # float32 ones, each run's folded steps (1, 2 and 12 of its 20) alone and
+    # the other 17 in its group's batched steps
+    if precision == "fast":
+        assert port_em.CALLS["em_bf16r"] - calls["em_bf16r"] == 4 * 20
+    else:
+        assert port_em.CALLS["em"] - calls["em"] == 4 * 3
+        assert port_em.CALLS["batch"] - calls["batch"] == 17 * len(prepared._run_groups(K, 4))
     port_weights = [w.numpy() for _, _, w in port_ens.bootstrap_inputs(
         prepared, K, 4, np.random.RandomState(0), init=init, X=X)]
     assert len(port_weights) == len(jax_weights) == 4
@@ -470,3 +482,92 @@ def test_estimator_validation(corpus):
     sparse = enstop_torch.ensemble_of_topics(X, 3, n_runs=2, n_iter=5, random_state=0,
                                              device="cpu")
     np.testing.assert_array_equal(dense, sparse)
+
+
+# the batched runs: a corpus whose group rule (PreparedCounts._run_groups)
+# gives groups of 4 and 3 for 7 runs of 5 topics, and 3 groups of 3 for 9
+BATCH_K = 5
+BATCH_CASES = {
+    "stops_apart": dict(n_runs=7, n_iter=40, n_iter_per_test=5, tolerance=1e-3),
+    "no_bootstrap": dict(n_runs=7, n_iter=40, n_iter_per_test=5, tolerance=1e-3,
+                         bootstrap=False),
+    "host_init": dict(n_runs=7, n_iter=40, n_iter_per_test=5, tolerance=1e-3, init="nndsvd"),
+    "tolerance_0_ragged": dict(n_runs=7, n_iter=13, n_iter_per_test=5, tolerance=0.0),
+    "all_stop_at_1": dict(n_runs=7, n_iter=30, n_iter_per_test=3, tolerance=0.05),
+    "three_groups": dict(n_runs=9, n_iter=17, n_iter_per_test=4, tolerance=1e-2),
+    "one_group": dict(n_runs=2, n_iter=25, n_iter_per_test=10, tolerance=1e-3),
+    "n_iter_0": dict(n_runs=7, n_iter=0, n_iter_per_test=10, tolerance=1e-3),
+    "n_iter_1": dict(n_runs=7, n_iter=1, n_iter_per_test=10, tolerance=1e-3),
+}
+
+
+@pytest.fixture(scope="module")
+def batch_corpus():
+    X = sp.csr_matrix(np.random.RandomState(0).poisson(0.3, (83, 301)).astype(np.float32))
+    return X, _staged(X, "auto", device="cpu", counts=True)
+
+
+@pytest.mark.parametrize("case", list(BATCH_CASES))
+def test_batched_runs_are_the_per_run_loops(batch_corpus, case):
+    """The dense fan-out's runs in groups on the batched step against the same
+    runs one after another (``_Staged._fit_runs``): the stack, each run's
+    steps, final state, final LL and LL trace bit for bit."""
+    X, prep = batch_corpus
+    kw = dict(BATCH_CASES[case])
+    n_runs, bootstrap, init = kw.pop("n_runs"), kw.pop("bootstrap", True), kw.pop("init", "random")
+    schedule = (kw["n_iter"], kw["n_iter_per_test"], kw["tolerance"])
+    steps = prep._steps("default", "")
+    assert "em_batch" in steps
+    groups = prep._run_groups(BATCH_K, n_runs)
+    assert sum(groups) == n_runs and max(groups) - min(groups) <= 1
+    if n_runs == 7:
+        assert n_runs % groups[0] != 0  # the runs do not fill whole groups
+
+    def runs():
+        return port_ens.bootstrap_inputs(prep, BATCH_K, n_runs, np.random.RandomState(5),
+                                         bootstrap, init, X)
+
+    got = {i: (res.state[0].clone(), res.state[1].clone(), *res[1:])
+           for i, res in prep._fit_runs(runs(), n_runs, BATCH_K, *schedule, steps)}
+    want = dict(_Staged._fit_runs(prep, runs(), n_runs, BATCH_K, *schedule, steps))
+    assert sorted(got) == list(range(n_runs))
+    for i, res in want.items():
+        zd, wz, n_steps, final_ll, trace, n_tests = got[i]
+        assert torch.equal(zd, res.state[0]) and torch.equal(wz, res.state[1]), i
+        assert (n_steps, final_ll, n_tests) == (res.n_steps, res.final_ll, res.n_tests), i
+        np.testing.assert_array_equal(trace, res.ll_trace)
+    run_steps = [want[i].n_steps for i in range(n_runs)]
+    if case == "stops_apart":
+        assert len(set(run_steps)) > 1  # runs retire at different tests
+    stack, steps_of = port_ens._device_resident_plsa_runs(
+        X, BATCH_K, n_runs, np.random.RandomState(5), bootstrap, init, *schedule,
+        prepared=prep, device="cpu")
+    assert steps_of == run_steps
+    assert torch.equal(stack, torch.cat([want[i].state[1][:BATCH_K, :X.shape[1]]
+                                         for i in range(n_runs)]))
+
+
+@pytest.mark.parametrize("route", ["dense", "sparse", "fast", "sharded"])
+def test_batched_run_steps_count_the_batched_route(batch_corpus, route):
+    """``batched_run_steps`` is each run's steps less its folded test steps
+    (step 1 and each step after a test point it went past) on the dense
+    fp32 route, and 0 on the sparse layout, at ``"fast"`` and on the
+    runs-sharded fan-out, which fit one run after another."""
+    X, _ = batch_corpus
+    npt = 4
+    kw = {"sparse": dict(backend="sparse"), "fast": dict(precision="fast"),
+          "sharded": dict(parallelism="sharded")}.get(route, {})
+    model = enstop_torch.EnsembleTopics(n_components=3, n_starts=5, n_iter=30,
+                                        n_iter_per_test=npt, random_state=0, device="cpu",
+                                        **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "sharded" on one device warns
+        model.fit(X)
+    counters = model.fit_info_["trace"]["counters"]
+    steps = model.fit_info_["run_steps"]
+    assert counters["em_steps"] == sum(steps)
+    folded = sum(1 + len(range(1, n, npt)) for n in steps)
+    want = sum(steps) - folded if route == "dense" else 0
+    assert counters.get("batched_run_steps", 0) == want
+    if route == "dense":
+        assert want > 0

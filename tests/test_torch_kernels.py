@@ -17,13 +17,15 @@ roundings fails. The batched kernel (#10) holds A and B to 1e-4 of the
 largest entry, as the dense fp32 modes do, repeats bit for bit, and gives
 each run the bits of a single-run ``em_accumulators_fused`` (the same
 operations in the same order: B by the row pass, A by the sparse word pass
-over a grid of runs). ``StreamedPLSA`` on the card (kernels #8 and #9 over
-blocks copied from pinned host memory) repeats bit for bit, stays bit for
-bit the same when every copy is held back, and agrees with its CPU run and
-the resident sparse fit (history rtol 1e-5, factors rtol 1e-3 / atol 1e-5).
-The NMF multiplicative updates on the card lie within 1e-3 of the largest
-entry of their CPU run after 50 steps (float32 products summed in another
-order).
+over a grid of runs); the ensemble's dense runs fitted in groups on it
+give the bits, steps and LL traces of the same runs one after another, and
+their device high-water stays under the staging's. ``StreamedPLSA`` on the
+card (kernels #8 and #9 over blocks copied from pinned host memory) repeats
+bit for bit, stays bit for bit the same when every copy is held back, and
+agrees with its CPU run and the resident sparse fit (history rtol 1e-5,
+factors rtol 1e-3 / atol 1e-5). The NMF multiplicative updates on the card
+lie within 1e-3 of the largest entry of their CPU run after 50 steps
+(float32 products summed in another order).
 """
 
 import numpy as np
@@ -410,6 +412,58 @@ def test_batched_fit_on_cuda_matches_cpu(cuda):
     zc, wc = cuda_batch.batched_em_fit(X.cpu(), zds.cpu(), wzs.cpu(), ws.cpu(), 10, device="cpu")
     _close(zf.cpu(), zc, 1e-4)
     _close(wf.cpu(), wc, 1e-4)
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_batched_ensemble_runs_are_the_per_run_runs(cuda, x_dtype):
+    """The dense fan-out's runs at a ragged shape (2,003 x 3,001, k = 20, 7
+    runs in more than one group), in groups on the batched kernel against the
+    same runs one after another: each run's state, steps, final LL and LL
+    trace bit for bit, and the stack; the runs' device high-water, the
+    layout included, at most the staging's."""
+    import scipy.sparse as sp
+
+    from enstop_torch.models.ensemble import _device_resident_plsa_runs, bootstrap_inputs
+    from enstop_torch.ops.data import _Staged
+    from enstop_torch.ops.driver import _staged
+
+    rng = np.random.default_rng(3)
+    n, m, k, n_runs = 2003, 3001, 20, 7
+    X = sp.csr_matrix(((rng.random((n, m)) < 0.03) * rng.integers(1, 6, (n, m)))
+                      .astype(np.float32))
+    schedule = (60, 10, 1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prep = _staged(X, "auto", x_dtype=x_dtype, device=cuda, counts=True)
+    torch.cuda.synchronize()
+    staging_peak = torch.cuda.max_memory_allocated() - base
+    assert str(prep.device_array.dtype) == f"torch.{x_dtype}"
+    assert len(prep._run_groups(k, n_runs)) > 1
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(cuda_em.LAUNCHES)
+    stack, run_steps = _device_resident_plsa_runs(
+        None, k, n_runs, np.random.RandomState(5), n_iter=schedule[0],
+        n_iter_per_test=schedule[1], tolerance=schedule[2], prepared=prep, device=cuda)
+    torch.cuda.synchronize()
+    runs_peak = torch.cuda.max_memory_allocated() - base
+    assert cuda_em.LAUNCHES["batch"] > before["batch"]
+    assert runs_peak <= staging_peak, (runs_peak, staging_peak)
+    steps = prep._steps("default", "")
+
+    def runs():
+        return bootstrap_inputs(prep, k, n_runs, np.random.RandomState(5))
+
+    got = {i: (res.state[0].clone(), res.state[1].clone(), *res[1:])
+           for i, res in prep._fit_runs(runs(), n_runs, k, *schedule, steps)}
+    want = dict(_Staged._fit_runs(prep, runs(), n_runs, k, *schedule, steps))
+    for i, res in want.items():
+        zd, wz, n_steps, final_ll, trace, n_tests = got[i]
+        assert torch.equal(zd, res.state[0]) and torch.equal(wz, res.state[1]), i
+        assert (n_steps, final_ll, n_tests) == (res.n_steps, res.final_ll, res.n_tests), i
+        np.testing.assert_array_equal(trace, res.ll_trace)
+    assert run_steps == [want[i].n_steps for i in range(n_runs)]
+    assert torch.equal(stack, torch.cat([want[i].state[1][:k, :m] for i in range(n_runs)]))
 
 
 def _walk_problem(device, dtype, kp, R=1, seed=0):

@@ -120,6 +120,7 @@ PORT_ONLY = {
     "ops.driver.kernel_steps": "the EM steps on the CUDA kernels",
     "ops.driver.plain_steps": "the EM steps in plain PyTorch",
     "ops.driver.fit_padded": "the fit on a padded corpus, shared with the mesh",
+    "ops.driver.fit_padded_runs": "the ensemble's runs in groups on the batched kernel",
     "ops.driver.refit_padded": "the refit on a padded corpus, shared with the mesh",
     "ops.coo.em_step_coo": "one EM step on COO, the plain version of the reference's loop",
     "ops.em.batched_accumulators_dense": PLAIN,
