@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
-``em_sparse.cu``, ``em_batch.cu`` and ``umap_layout.cu``, one ``nvcc`` each,
-started together)
+``em_sparse.cu``, ``em_sparse_wide.cu``, ``em_batch.cu`` and ``umap_layout.cu``,
+one ``nvcc`` each, started together)
 and checks each kernel (the dense fp32 and bf16-responsibilities modes of
 ``precision="fast"``, the sparse word and doc passes, plain and thresholded,
 the batched row and word passes; phase 17: the dense B pass and the word
@@ -108,14 +108,32 @@ launch counts set to 0 just before it and read just after:
     whole ``EnsembleTopics.fit`` on each route, its stable topics and
     embedding bit for bit. It prints the groups, both routes' walls, their
     device high-water against the staging's (which the runs must not pass)
-    and the counters ``em_steps`` and ``batched_run_steps``.
+    and the counters ``em_steps`` and ``batched_run_steps``;
+18. the sparse passes past 256 topics (phase 21, ``em_sparse_wide.cu``):
+    (a) each pass at k = 1,000 against its plain version on 5,000 documents
+    of config C', weighted and not, each threshold, LL on and off; then at
+    the corpus of the cell ``nytimes-k1000.fit-wide`` (300,000 x 102,660,
+    69.7 M nonzeros, made on the card from a fixed seed) with the LL on,
+    unweighted without a threshold and weighted with one, against the plain
+    version run over blocks of about 1 GiB of gathered rows, and timed
+    there (the threshold the median of the products, where 1e-3 drops every
+    one at 1,000 topics); (b) ``PLSA(n_components=1000,
+    backend="sparse", n_iter=20, tolerance=0)`` at config C' through its
+    normal path, every pass on the wide walk (launches and the trace's
+    ``wide_passes``), held to ``benchmark/reference/plsa_wide.py`` (float64
+    on the card, same init) by the cell ``nytimes-k1000.fit-wide``'s limits,
+    and its ``transform`` of 2,000 documents to the float64 refit within
+    5e-5 (widest row, l1). Every kernel instance up to 256 topics giving a
+    parent's bits is checked by ``scripts/torch_narrow_bits.py``, run on the
+    parent's checkout and this one in one call.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
 24 dense) with the registers and spill stores of its instances, and fails if
 one of them spills; the same for the dense row walk's instances
 (``em_accumulate`` and ``batch_rows``, ``csrc/row_walk.cuh``) at kp = 20, 24
-and 104, failing on a spill at kp = 20 and 24. Phase 2 also times the dense
+and 104, failing on a spill at kp = 20 and 24, and for the wide walk's
+instances (``em_sparse_wide.cu``), failing on a spill at kp = 1000. Phase 2 also times the dense
 kernel alone (B + LL and B only), without the EM step's word pass. It checks
 that every kernel of each path was launched,
 that no plain op was called, and that the results agree with the plain path
@@ -200,6 +218,7 @@ FP32_OP_PER_SM_S = FP32_FLOP_PER_S / 2 / 132
 LAYOUT_GAP = {1: 1e-5, 5: 1e-3, 20: 5e-2}
 DENSE_SOURCE = "enstop_torch/ops/csrc/em_dense.cu"
 SPARSE_SOURCE = "enstop_torch/ops/csrc/em_sparse.cu"
+WIDE_SOURCE = "enstop_torch/ops/csrc/em_sparse_wide.cu"
 BATCH_SOURCE = "enstop_torch/ops/csrc/em_batch.cu"
 LAYOUT_SOURCE = "enstop_torch/ops/csrc/umap_layout.cu"
 KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
@@ -215,6 +234,10 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "doc_pass_thresh": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     "batch": (BATCH_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
     "batch_word": (SPARSE_SOURCE, "enstop_tpu/ops/pallas_batch.py:54"),
+    "word_pass_wide": (WIDE_SOURCE, "enstop_tpu/ops/pallas_sell.py:456"),
+    "word_pass_wide_thresh": (WIDE_SOURCE, "enstop_tpu/ops/pallas_sell.py:456"),
+    "doc_pass_wide": (WIDE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
+    "doc_pass_wide_thresh": (WIDE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     # no TPU kernel: the JAX package's layout is one compiled lax.fori_loop
     "umap_layout": (LAYOUT_SOURCE, "enstop_tpu/cluster/umap.py:183"),
 }
@@ -242,6 +265,14 @@ MESH_LL_RTOL = 1e-5  # a mesh fit's final LL against its single-device counterpa
 INNER = dict(n_iter=100, n_iter_per_test=10, tolerance=0.0)  # phase 16 (a)
 COMPAT_LL_RTOL = 1e-5  # phase 16: the inner loop against the plain steps, streamed vs resident
 STREAM_DOCS_16 = 4096  # phase 16 (d)'s block_size
+# phase 21: the wide walk's fit at config C', held to the cell nytimes-k1000.fit-wide's
+# limits of the float64 reference; its transform to the widest-row l1 limit of
+# PERF.md's transform cell (5e-5, at which the sound transform read 1.6-2.4e-7)
+WIDE_FIT = dict(n_components=1000, backend="sparse", n_iter=20, n_iter_per_test=10,
+                tolerance=0.0, random_state=0, device="cuda")
+WIDE_TRANSFORM_L1 = 5e-5
+WIDE_CELL, WIDE_CORPUS_SEED = "nytimes-k1000.fit-wide", 2_400_210_001
+WIDE_BLOCK_BYTES = 1 << 30  # plain_pass_blocked: gathered rows a block
 
 
 def check(ok, what):
@@ -583,6 +614,18 @@ def sparse_instance(mangled):
             + ratio_suffix(ratio))
 
 
+def wide_instance(mangled):
+    """``"TPL<TPL>_V<V>_<pass>[_thresh]"`` for a mangled ``wide_walk_segments``
+    instance of ``em_sparse_wide.cu``, ``"reduce_TPL<TPL>_V<V>"`` for a
+    ``wide_walk_reduce`` one, else None."""
+    m = re.search(r"wide_walk_segmentsILi(\d+)ELi(\d+)ELb([01])ELb([01])EE", mangled)
+    if m is not None:
+        tpl, v, word, thresh = (int(g) for g in m.groups())
+        return f"TPL{tpl}_V{v}_{'word' if word else 'doc'}" + ("_thresh" if thresh else "")
+    m = re.search(r"wide_walk_reduceILi(\d+)ELi(\d+)EE", mangled)
+    return None if m is None else "reduce_TPL{}_V{}".format(*m.groups())
+
+
 def row_instance(mangled):
     """``"<kernel>_<x dtype>_L<L>_TPL<TPL>_V<V>[_B][_LL][_<ratio mode>]"`` for a
     mangled ``em_accumulate`` or ``batch_rows`` instance (``csrc/row_walk.cuh``),
@@ -621,12 +664,58 @@ def sparse_problem(prep, k, weighted, seed):
             w if weighted else None)
 
 
+def card_problem(prep, k, weighted, seed):
+    """Factors shaped as ``sparse_problem``'s, drawn on the card (the cell's
+    300,000 x 1,000 Dirichlet draws take numpy about half a minute): P(z|d)
+    from a Dirichlet(0.3), P(w|z) Zipf over the words with each topic's
+    ranking shifted a little, and document weights."""
+    n, m = prep.shape
+    dev = prep.device
+    torch.manual_seed(seed)
+    zd = torch.distributions.Dirichlet(torch.full((k,), 0.3, device=dev)).sample((n,))
+    zipf = 1.0 / torch.arange(1, m + 1, device=dev, dtype=torch.float64) ** 1.05
+    shift = torch.randint(50, (k, 1), device=dev)
+    wz = zipf[(torch.arange(m, device=dev) + shift) % m] * (0.5 + torch.rand(
+        (k, m), device=dev, dtype=torch.float64))
+    wz /= wz.sum(1, keepdim=True)
+    w = 0.5 + torch.rand(n, device=dev)
+    return zd.float(), wz.t().float().contiguous(), w if weighted else None
+
+def plain_pass_blocked(side, zd, wzT, w, word, thresh):
+    """The plain pass (``cuda_sparse``'s ``word_pass_plain`` / ``doc_pass_plain``)
+    over blocks of whole segments, each about ``WIDE_BLOCK_BYTES`` of gathered
+    rows, where its (nnz, k) temporaries would not fit the card. Each block's
+    owner sums (float64 in the plain pass, rounded once to float32) and its LL
+    are added in float64, so an owner split across blocks carries one float32
+    rounding a block it spans. Returns the accumulator (float64) and the LL."""
+    from enstop_torch.ops import cuda_sparse
+
+    plain = cuda_sparse.word_pass_plain if word else cuda_sparse.doc_pass_plain
+    per_block = max(1, WIDE_BLOCK_BYTES // (4 * zd.shape[1]))
+    seg_ptr = side.seg_ptr.cpu()
+    out = torch.zeros((side.n_owner, zd.shape[1]), dtype=torch.float64, device=zd.device)
+    ll = torch.zeros((), dtype=torch.float64, device=zd.device)
+    s0 = 0
+    while s0 < side.n_seg:
+        s1 = int(torch.searchsorted(seg_ptr, seg_ptr[s0] + per_block, right=True)) - 1
+        s1 = min(max(s1, s0 + 1), side.n_seg)
+        e0, e1 = int(seg_ptr[s0]), int(seg_ptr[s1])
+        block = cuda_sparse.Side(side.idx[e0:e1], side.vals[e0:e1], side.seg_ptr[s0:s1 + 1] - e0,
+                                 side.seg_owner[s0:s1], side.owner_seg_ptr, side.n_owner,
+                                 side.n_index)
+        part, part_ll = plain(block, zd, wzT, w, thresh=thresh, compute_ll=True)
+        out += part
+        ll += part_ll.double()
+        s0 = s1
+    return out, ll
+
+
 def compare_sparse(name, prep, k, cuda_sparse):
     """The word and doc passes against their plain versions on one sparse
     layout, weighted and not, each threshold, LL on and off. Returns each
     kernel's largest absolute error on its accumulator."""
-    worst = {key: 0.0 for key in ("word_pass", "word_pass_thresh", "doc_pass",
-                                  "doc_pass_thresh")}
+    wide = "_wide" if k > cuda_sparse.MAX_NARROW_KP else ""
+    worst = {f"{p}{wide}{t}": 0.0 for p in ("word_pass", "doc_pass") for t in ("", "_thresh")}
     for weighted in (False, True):
         zd, wzT, w = sparse_problem(prep, k, weighted, seed=5)
         for thresh in THRESHOLDS:
@@ -638,7 +727,7 @@ def compare_sparse(name, prep, k, cuda_sparse):
                 kernel, plain = ((cuda_sparse.word_pass, cuda_sparse.word_pass_plain) if word
                                  else (cuda_sparse.doc_pass, cuda_sparse.doc_pass_plain))
                 out0, ll0 = plain(side, zd, wzT, w, thresh=thresh)
-                key = ("word_pass" if word else "doc_pass") + ("_thresh" if thresh else "")
+                key = ("word_pass" if word else "doc_pass") + wide + ("_thresh" if thresh else "")
                 for compute_ll in (False, True):
                     out, ll = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll)
                     torch.cuda.synchronize()
@@ -1642,6 +1731,115 @@ def ensemble_batch_phase(X, smi, cuda_em, em, totals):
     check(peak_b <= staging_peak, "the batched runs stay under the staging's high-water")
 
 
+def wide_phase(XC2, smi, cuda_em, em, totals):
+    """Phase 21: the sparse passes past 256 topics (``em_sparse_wide.cu``).
+    (a) Each pass at k = 1,000 against its plain version on 5,000 documents
+    of config C', each mode; then, LL on, at the corpus of the cell
+    ``nytimes-k1000.fit-wide`` against the plain version run over blocks of
+    entries (``plain_pass_blocked``), plain and weighted with a threshold
+    that drops about half the products, and timed there. (b)
+    ``PLSA(n_components=1000, backend="sparse")`` at config C' through its
+    normal path, against ``benchmark/reference/plsa_wide.py`` (float64 on the
+    card) from the same init, and its ``transform`` of 2,000 documents
+    against the reference's refit."""
+    import enstop_torch
+    from enstop_torch.ops import cuda_sparse
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "benchmark"))
+    import harness
+    import inputs
+    from reference import compare, plsa_wide
+
+    t_phase = time.perf_counter()
+    k = WIDE_FIT["n_components"]
+    sub = enstop_torch.prepare_sell(XC2[:5000].astype(np.float32), standardize=False,
+                                    device="cuda")
+    worst = compare_sparse(f"config C' 5,000 docs k={k}", sub, k, cuda_sparse)
+    del sub
+    # the main path's shape: the cell's corpus, where a head word's owner
+    # spans hundreds of segments in the owner reduction
+    cell = harness.find_cell(WIDE_CELL)
+    X = inputs.make_corpus(cell, WIDE_CORPUS_SEED, "cuda")["train"]
+    prep = enstop_torch.prepare_sell(X, standardize=False, device="cuda")
+    del X
+    timing, bounds = {}, {}
+    for weighted in (False, True):
+        zd, wzT, w = card_problem(prep, k, weighted, seed=6)
+        w = torch.ones(prep.n, device="cuda") if w is None else w
+        thresh = None
+        if weighted:
+            # at 1,000 topics a product is near 1e-8 and 1e-3 drops them all:
+            # the threshold is the median of a sample, so it drops about half
+            v = zd[prep.doc.owners()[:200_000]] * wzT[prep.doc.idx[:200_000].long()]
+            thresh = float(v.median())
+            print(f"  the cell's corpus: threshold {thresh:.3e}, drops "
+                  f"{float((v <= thresh).float().mean()):.3f} of the sampled products")
+            del v
+        for word in (True, False):
+            side = prep.word if word else prep.doc
+            kernel = cuda_sparse.word_pass if word else cuda_sparse.doc_pass
+            key = ("word_pass" if word else "doc_pass") + "_wide" + ("_thresh" if thresh else "")
+            out, ll = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=True)
+            t0 = time.perf_counter()
+            out0, ll0 = plain_pass_blocked(side, zd, wzT, w, word, thresh)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            eo, el = rel_err(out, out0), rel_err(ll, ll0)
+            worst[key] = max(worst[key], abs_err((out, out0)))
+            del out, out0
+            timing[key] = (cuda_ms(lambda: kernel(side, zd, wzT, w, thresh=thresh,
+                                                  compute_ll=False), 5), plain_ms)
+            bounds[key] = sparse_bound_ms(side, prep.n, prep.m, k)
+            print(f"  the cell's corpus ({prep.n} x {prep.m}, nnz {prep.nnz}, {side.n_seg} "
+                  f"segments), k = {k}: {key} weighted={weighted} thresh={thresh} "
+                  f"compute_ll=True: rel err {'A' if word else 'B'} {eo:.3e} ll {el:.3e}; "
+                  f"{timing[key][0]:.4f} ms (LL off), plain in blocks {plain_ms:.1f} ms, bound "
+                  f"{bounds[key][0]:.4f} ms ({bounds[key][1]})")
+            check(eo <= SPARSE_RTOL and el <= SPARSE_RTOL, f"the cell's corpus {key} kernel")
+        del zd, wzT, w
+    del prep
+
+    limits = json.loads((root / "benchmark" / "traffic" / "fit-wide.json").read_text())["limits"]
+    reset_counts(cuda_em, em)
+    t0 = time.perf_counter()
+    model = enstop_torch.PLSA(**WIDE_FIT).fit(XC2)
+    fit_wall = time.perf_counter() - t0
+    launches = read_counts("phase 21 wide fit", ("word_pass_wide", "doc_pass_wide"), cuda_em,
+                           em, totals)
+    n_iter = WIDE_FIT["n_iter"]
+    n_ll = 1 + len(range(1, n_iter + 1, WIDE_FIT["n_iter_per_test"]))  # the first and each test
+    wide_passes = model.fit_info_["trace"]["counters"].get("wide_passes", 0)
+    check(launches["word_pass_wide"] == n_iter and launches["doc_pass_wide"] == n_iter + n_ll
+          and wide_passes == 2 * n_iter + n_ll and launches["word_pass"] == 0,
+          "the wide fit ran every pass on the wide walk and counted it")
+    t0 = time.perf_counter()
+    cands = plsa_wide.fit(XC2, k, WIDE_FIT["random_state"], n_iter, WIDE_FIT["n_iter_per_test"],
+                          WIDE_FIT["tolerance"], "cuda")
+    ref_wall = time.perf_counter() - t0
+    gaps = compare.fit_gaps(model.embedding_, model.components_, model.n_iter_, cands)
+    print(f"phase 21 wide PLSA at config C' ({XC2.shape[0]} x {XC2.shape[1]}, nnz {XC2.nnz}), "
+          f"k = {k}, {n_iter} steps on {smi}: fit {fit_wall:.3f} s wall (EM loop "
+          f"{model.fit_info_['wall_time_s']:.3f} s), float64 reference {ref_wall:.3f} s; against "
+          f"it {json.dumps({key: gaps[key] for key in sorted(gaps)})}; the cell's limits "
+          f"{json.dumps(limits)}")
+    check(all(gaps[key] <= limit for key, limit in limits.items()),
+          "the wide fit lies within the cell's limits of the float64 reference")
+    docs = XC2[:N_TRANSFORM]
+    reset_counts(cuda_em, em)
+    embedding = model.transform(docs)
+    read_counts("phase 21 wide transform", ("doc_pass_wide",), cuda_em, em, totals)
+    refit_gap = compare.embedding_gap(embedding, plsa_wide.refit(docs, model.components_,
+                                                                  "cuda"))
+    print(f"  transform of {N_TRANSFORM} documents against the float64 refit: widest row l1 "
+          f"{refit_gap:.3e} (limit {WIDE_TRANSFORM_L1})")
+    check(refit_gap <= WIDE_TRANSFORM_L1, "the wide transform lies near the float64 refit")
+    del model, cands
+
+    print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return worst, timing, bounds
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1704,6 +1902,21 @@ def main():
                       f"spill store bytes by instance {json.dumps(found)}")
                 check(found and (kp > 24 or all(spill == 0 for _, spill in found.values())),
                       f"the {name} instances at kp = {kp} are built and do not spill")
+    build = _build.BUILD_LOG.get("em_sparse_wide")
+    if build is None:
+        print("phase 1 build: em_sparse_wide loaded from enstop_torch/_build")
+    else:
+        found = {wide_instance(key): v for key, v in ptxas_instances(build["report"]).items()
+                 if wide_instance(key)}
+        print(f"phase 1 build: em_sparse_wide built (nvcc {build['seconds']:.2f} s); the wide "
+              f"walk past kp = {cuda_sparse.MAX_NARROW_KP} ({cuda_sparse.WIDE_SHAPES}, one "
+              f"entry a warp): registers, spill store bytes by instance {json.dumps(found)}")
+        # 3 shapes x 2 chunk widths x 4 modes, and 3 x 2 owner reductions; the
+        # main path's (kp = 1000: TPL = 32, 16-byte chunks) must not spill
+        main = {key: v for key, v in found.items() if "TPL32_V4" in key}
+        check(len(found) == 30 and len(main) == 5
+              and all(spill == 0 for _, spill in main.values()),
+              "the em_sparse_wide instances are built, those at kp = 1000 without a spill")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
 
     # -- phase 2: each dense kernel against its plain version -----------------
@@ -2291,6 +2504,8 @@ def main():
     contract_phase(X, docs, model, fit_wall, smi, cuda_em, em, totals)
     loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, totals)
     ensemble_batch_phase(X, smi, cuda_em, em, totals)
+    for table, part in zip((worst, timing, bounds), wide_phase(XC2, smi, cuda_em, em, totals)):
+        table.update(part)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

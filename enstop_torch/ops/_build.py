@@ -40,13 +40,16 @@ NVCC_FLAGS = (
 # step ("em"), of the refit ("refit"), its LL sweep ("ll"), their bf16r modes,
 # the sparse passes, plain, thresholded and (word pass only) bf16r, and the
 # batched fit's row pass for B ("batch") and word pass for A ("batch_word", the
-# sparse word pass over a grid of runs); then the dense B pass and the word
-# pass in the five ratio modes that only the divide experiment's step runs
-# (cuda_em._em_accumulators_ratio); then the UMAP layout, every epoch in one
-# launch (cuda_umap.py)
+# sparse word pass over a grid of runs), the sparse passes past 256 topics on
+# the wide walk (em_sparse_wide.cu), plain and thresholded; then the dense B
+# pass and the word pass in the five ratio modes that only the divide
+# experiment's step runs (cuda_em._em_accumulators_ratio); then the UMAP
+# layout, every epoch in one launch (cuda_umap.py)
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
             "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0,
+            "word_pass_wide": 0, "word_pass_wide_thresh": 0, "doc_pass_wide": 0,
+            "doc_pass_wide_thresh": 0,
             **{f"{kind}_{mode}": 0 for mode in RATIO_MODES[1:-1]
                for kind in ("em", "word_pass")},
             "umap_layout": 0}
@@ -67,6 +70,11 @@ _SIGNATURES = {
         # n_owner, n_index, kp, stream
         "enstop_em_sparse": (_I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P, _P,
                              _F, _P, _P, _P, _LL, _LL, _LL, _I, _P),
+    },
+    "em_sparse_wide": {
+        # em_sparse's arguments (ratio 0 and lanes 32 only)
+        "enstop_em_sparse_wide": (_I, _I, _I, _I, _I, _I, _LL, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _F, _P, _P, _P, _LL, _LL, _LL, _I, _P),
     },
     "em_batch": {
         # x_bf16, lanes, tpl, warps, stages, window, queue, X, zd, wzT, B, R, n, m, kp,

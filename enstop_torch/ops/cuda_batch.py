@@ -51,8 +51,9 @@ import torch
 
 from . import em as em_ops
 from ._build import LAUNCHES, launch, library
-from .cuda_em import ROW_STREAM, _check_precision, _on_cpu, walk_args, word_side_of
-from .cuda_sparse import MAX_KP, launch_pass
+from .cuda_em import (ROW_STREAM, _check_narrow, _check_precision, _on_cpu, walk_args,
+                      word_side_of)
+from .cuda_sparse import launch_pass
 from .data import resolve_device
 
 __all__ = ["BATCH_STREAM", "batch_rows", "batch_words", "batched_accumulators",
@@ -82,8 +83,7 @@ def _check_tables(zds, wzT, n, m, device, ws=None):
             raise ValueError("run tables must be contiguous")
         if t.device != device or device.type != "cuda":
             raise ValueError(f"a run table lies on {t.device}, the pass runs on {device}")
-    if not 0 < kp <= MAX_KP:
-        raise ValueError(f"padded topic count {kp} must be in 1..{MAX_KP}")
+    _check_narrow(kp)
     return R, kp
 
 

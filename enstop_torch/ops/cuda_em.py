@@ -54,7 +54,8 @@ import torch
 
 from . import em as em_ops
 from ._build import LAUNCHES, library
-from .cuda_sparse import MAX_KP, _pass, _ratio_of, build_side, walk_shape, word_pass
+from .cuda_sparse import (MAX_KP, MAX_NARROW_KP, _pass, _ratio_of, build_side, walk_shape,
+                          word_pass)
 
 RATIO_MODES = em_ops.RATIO_MODES
 _SMEM_LIMIT = 232_448 - 1024  # shared memory a block may use on an H100, less the static part
@@ -94,10 +95,20 @@ class RowStream(NamedTuple):
 ROW_STREAM = RowStream()  # the dense kernel's stream (scripts/torch_dense_sweep.py)
 
 
+def _check_narrow(kp):
+    """Raise ``ValueError`` on a padded topic count the row walk (#1-#3, #6,
+    #7) and the batched kernel (#10) do not take; the sparse passes take more."""
+    if not 0 < kp <= MAX_NARROW_KP:
+        raise ValueError(f"padded topic count {kp} must be in 1..{MAX_NARROW_KP} on the dense "
+                         f"path and the batched fit; backend='sparse' fits up to {MAX_KP} "
+                         f"topics")
+
+
 def walk_args(kp, shape, stream):
     """The walk's and the stream's integer arguments of both row kernels:
     ``(lanes, tpl, warps, stages, window, queue)``. ``shape`` is ``(L,
     TPL)``, ``walk_shape(kp)`` when None."""
+    _check_narrow(kp)
     lanes, tpl = walk_shape(kp) if shape is None else shape
     if lanes * tpl < kp:
         raise ValueError(f"walk shape {(lanes, tpl)} holds fewer than {kp} topics")
@@ -155,8 +166,6 @@ def _launch(kind, X, zd, wz, sample_weight, with_b, compute_ll, ratio="f32div", 
         raise TypeError(f"X must be bfloat16 or float32, not {X.dtype}")
     if zd.dtype != torch.float32 or wz.dtype != torch.float32:
         raise TypeError("factors must be float32")
-    if not 0 < kp <= MAX_KP:
-        raise ValueError(f"padded topic count {kp} must be in 1..{MAX_KP}")
     if (m * X.element_size()) % 16 or m >= 2**31:
         raise ValueError(f"padded width {m} must fill whole 16-byte rows, below 2^31")
     args = walk_args(kp, shape, stream)

@@ -17,7 +17,13 @@ on the device with torch from a COO sorted by owner; nothing loops in Python.
 version (``word_pass_plain``, ``doc_pass_plain``: gathers and
 ``index_add_``, on any device); on a CUDA tensor it launches the kernel or
 raises. ``CALLS`` counts calls of the plain versions. :func:`walk_shape`
-picks the kernel's lane groups for a topic count.
+picks the kernel's lane groups for a topic count: up to ``MAX_NARROW_KP``
+(256) the lane-group walk of ``csrc/em_sparse.cu``, which the dense row walk
+shares; past it, up to ``MAX_KP`` (2,048), the wide walk of
+``csrc/em_sparse_wide.cu`` (one entry a warp, ``WIDE_SHAPES``), in the fp32
+ratio mode only. A pass on the wide walk adds 1 to the profiling counter
+``wide_passes`` of the open request, on any device (a CPU pass runs the plain
+version, and counts what the card would).
 
 The private ``ratio`` argument of ``_pass``, ``_plain_pass`` and
 :func:`launch_pass` is the E-step's ratio mode (``em.RATIO_MODES``,
@@ -34,7 +40,8 @@ from ..profiling import count
 from ._build import LAUNCHES, library
 from .em import _TINY, RATIO_MODES, ratio as _ratio
 
-__all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk_shape",
+__all__ = ["SEG_LEN", "MAX_NARROW_KP", "MAX_KP", "WALK_SHAPES", "WIDE_SHAPES",
+           "SWEEP_SHAPES", "Side", "build_side", "walk_shape",
            "launch_pass", "word_pass", "doc_pass", "word_pass_plain", "doc_pass_plain",
            "LAUNCHES", "CALLS"]
 
@@ -42,13 +49,19 @@ __all__ = ["SEG_LEN", "WALK_SHAPES", "SWEEP_SHAPES", "Side", "build_side", "walk
 # the serial sum of a frequent owner's partial rows (a Zipf head word holds
 # nearly every document); 512 measured best on an H100 (scripts/torch_sparse_sweep.py)
 SEG_LEN = 512
-MAX_KP = 256
+# topic counts of the lane-group walk (em_sparse.cu, and the dense row walk),
+# and of the sparse passes, whose wide walk (em_sparse_wide.cu) takes the rest
+MAX_NARROW_KP = 256
+MAX_KP = 2048
 # (L, TPL): L lanes an entry, TPL topics a lane. The shapes the kernel is built
 # at for every topic count (csrc/lane_walk.cuh: kShapes, which the dense row
 # walk shares), and those built for kp % 4 == 0 only, which the sweep over L
 # times (csrc/em_sparse.cu: kSweepShapes).
 WALK_SHAPES = ((1, 4), (1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (32, 8))
 SWEEP_SHAPES = ((1, 20), (1, 24), (2, 12), (8, 4), (8, 16), (32, 4))
+# the wide walk's shapes past MAX_NARROW_KP: 32 lanes an entry, TPL topics a
+# lane (csrc/em_sparse_wide.cu: kWideShapes)
+WIDE_SHAPES = ((32, 16), (32, 32), (32, 64))
 
 CALLS = {"word_pass": 0, "doc_pass": 0}
 
@@ -122,10 +135,12 @@ def build_side(owner, idx, vals, n_owner, n_index):
 
 def walk_shape(kp):
     """The kernel's ``(L, TPL)`` for ``kp`` topics: the first of
-    ``WALK_SHAPES`` with ``L * TPL >= kp``."""
+    ``WALK_SHAPES`` with ``L * TPL >= kp``, or past ``MAX_NARROW_KP`` the first
+    of ``WIDE_SHAPES``."""
     if not 0 < kp <= MAX_KP:
         raise ValueError(f"topic count {kp} must be in 1..{MAX_KP}")
-    return next((L, tpl) for L, tpl in WALK_SHAPES if L * tpl >= kp)
+    shapes = WALK_SHAPES if kp <= MAX_NARROW_KP else WIDE_SHAPES
+    return next((L, tpl) for L, tpl in shapes if L * tpl >= kp)
 
 
 def _bf16(a):
@@ -194,33 +209,44 @@ def _ones_if_none(w, zd):
 def _pass(side, zd, wzT, w, word, thresh, compute_ll, ratio="f32div"):
     name = "word_pass" if word else "doc_pass"
     w = _ones_if_none(w, zd)
+    wide = zd.shape[1] > MAX_NARROW_KP
     if _check(side, zd, wzT, w, word):
-        return _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, ratio)
-    if any(t.dtype != torch.float32 for t in (zd, wzT, w)):
-        raise TypeError("factors and weights must be float32")
-    out, ll_seg = launch_pass(side, zd.contiguous(), wzT.contiguous(), w.contiguous(), word,
-                              thresh, compute_ll, ratio)
-    mode = "_thresh" if thresh is not None else "" if ratio == "f32div" else "_" + ratio
-    LAUNCHES[name + mode] += 1
-    return out, ll_seg.sum()  # the per-segment LL partials, summed in a fixed order
+        out, ll = _plain_pass(side, zd, wzT, w, word, thresh, compute_ll, ratio)
+    else:
+        if any(t.dtype != torch.float32 for t in (zd, wzT, w)):
+            raise TypeError("factors and weights must be float32")
+        out, ll_seg = launch_pass(side, zd.contiguous(), wzT.contiguous(), w.contiguous(),
+                                  word, thresh, compute_ll, ratio)
+        mode = "_thresh" if thresh is not None else "" if ratio == "f32div" else "_" + ratio
+        LAUNCHES[name + ("_wide" if wide else "") + mode] += 1
+        ll = ll_seg.sum()  # the per-segment LL partials, summed in a fixed order
+    if wide:
+        count("wide_passes")
+    return out, ll
 
 
 def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, ratio="f32div"):
     """Launch one pass over ``side`` for R runs that share it: contiguous
     float32 CUDA tables ``zd`` (R, n, kp) or (n, kp), ``wzT`` (R, m, kp) or
     (m, kp) and ``w`` (R, n) or (n,), shapes checked by the caller; ``ratio``
-    one of ``RATIO_MODES``. Returns the raw accumulator (R, n_owner, kp) or
+    one of ``RATIO_MODES`` (``"f32div"`` alone past ``MAX_NARROW_KP``,
+    on the wide walk). Returns the raw accumulator (R, n_owner, kp) or
     (n_owner, kp) and the per-segment LL partials (R, n_seg) or (n_seg,),
     empty with ``compute_ll=False``."""
     runs = zd.shape[:-2]  # () for one run, (R,) for R
     R, kp = (runs[0] if runs else 1), zd.shape[-1]
     lanes, tpl = walk_shape(kp)
+    wide = kp > MAX_NARROW_KP
+    if wide and ratio != "f32div":
+        raise ValueError(f"the wide walk (kp = {kp} > {MAX_NARROW_KP}) runs the ratio "
+                         f"'f32div' only, not {ratio!r}")
     dev = zd.device
     partial = torch.empty((R, side.n_seg, kp), dtype=torch.float32, device=dev)
     ll_seg = torch.empty((*runs, side.n_seg if compute_ll else 0), dtype=torch.float32,
                          device=dev)
     out = torch.empty((*runs, side.n_owner, kp), dtype=torch.float32, device=dev)
-    fn = library("em_sparse").enstop_em_sparse
+    fn = (library("em_sparse_wide").enstop_em_sparse_wide if wide
+          else library("em_sparse").enstop_em_sparse)
     with torch.cuda.device(dev):
         err = fn(int(word), int(thresh is not None), int(compute_ll), RATIO_MODES.index(ratio),
                  lanes, tpl, R, side.seg_ptr.data_ptr(), side.seg_owner.data_ptr(),
@@ -231,7 +257,8 @@ def launch_pass(side, zd, wzT, w, word, thresh=None, compute_ll=False, ratio="f3
                  side.n_seg, side.n_owner, side.n_index, kp,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"em_sparse {'word' if word else 'doc'} pass launch failed: "
+        raise RuntimeError(f"{'em_sparse_wide' if wide else 'em_sparse'} "
+                           f"{'word' if word else 'doc'} pass launch failed: "
                            f"cudaError {err}")
     return out, ll_seg
 

@@ -80,10 +80,13 @@ back (a test point's log-likelihood, an index bound, a segment count) and
 each ``bincount`` (it reads its input's bounds back). It counts the same on
 any device, so a CPU fit reads what the same fit on a card would; where a
 path runs only on the card (the UMAP layout's epochs on the device) it
-counts there alone. No span or
-counter runs per EM step. The counters ``coo_as_is`` and
-``coo_canonicalized`` count the corpora shipped as they stood and those
-canonicalised on the host first (``ops.data.ship_coo``).
+counts there alone. No span runs per EM step, and no counter but
+``wide_passes``: the sparse passes past 256 topics (``ops.cuda_sparse``'s
+wide walk, about 0.1 s a pass at k = 1,000 on the whole UCI NYTimes
+corpus), one a pass, counted the same on any device and never at 256 topics
+or fewer. The counters ``coo_as_is`` and ``coo_canonicalized`` count the
+corpora shipped as they stood and those canonicalised on the host first
+(``ops.data.ship_coo``).
 """
 
 from __future__ import annotations

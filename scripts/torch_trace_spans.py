@@ -1,6 +1,6 @@
 """Where a fit's time goes, by the program's spans, on the card.
 
-    PYTHONPATH=. python3 scripts/torch_trace_spans.py [--seed N] [--cells a,b]
+    PYTHONPATH=. python3 scripts/torch_trace_spans.py [--seed N] [--cells a,b] [--fits U T]
 
 For each benchmark cell named (``BENCHMARK.json``; by default
 ``20ng-k20.fit`` and ``nytimes-k20.fit-sparse``), on the cell's corpus made
@@ -226,6 +226,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=2300000041)
     parser.add_argument("--cells", default="20ng-k20.fit,nytimes-k20.fit-sparse")
+    parser.add_argument("--fits", type=int, nargs=2, default=None,
+                        metavar=("UNTRACED", "TRACED"),
+                        help="fits untraced and in each traced window (default: 20 and 15 "
+                             "on the dense path, 5 and 2 on the sparse)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -236,7 +240,7 @@ def main():
         cell = find_cell(name, ROOT)
         X = make_corpus(cell, args.seed, "cuda")["train"]
         dense = cell.traffic["estimator"].get("backend") != "sparse"
-        n_untraced, n_traced = (20, 15) if dense else (5, 2)
+        n_untraced, n_traced = args.fits or ((20, 15) if dense else (5, 2))
         _fit(cell, X, random_state(args.seed, -1))  # warm: builds the kernels
         out = {"nnz": int(X.nnz), "sync": sync_sites(cell, X, args.seed),
                "untraced": untraced(cell, X, args.seed, n_untraced)}

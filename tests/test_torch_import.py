@@ -105,7 +105,8 @@ def test_exports():
     assert set(enstop_torch.LAUNCHES) == {
         "em", "refit", "ll", "em_bf16r", "refit_bf16r",
         "word_pass", "word_pass_thresh", "word_pass_bf16r", "doc_pass", "doc_pass_thresh",
-        "batch", "batch_word",
+        "batch", "batch_word", "word_pass_wide", "word_pass_wide_thresh", "doc_pass_wide",
+        "doc_pass_wide_thresh",
         *(f"{kind}_{mode}" for mode in ("recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32")
           for kind in ("em", "word_pass")),
         "umap_layout"}

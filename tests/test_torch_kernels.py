@@ -7,7 +7,11 @@ before padding and spanning several blocks of rows. Tolerances: rtol 1e-4
 on A, B and the factors (the kernels sum in another order than the plain
 matmul), rtol 1e-5 on the log-likelihood. The sparse passes (kernels #8 and
 #9) hold their accumulators to 1e-5 of the largest entry and the LL to 1e-5
-relative, with the threshold off, at 1e-16 and at 1e-3. Every kernel gives
+relative, with the threshold off, at 1e-16 and at 1e-3, and so does their
+wide walk past 256 topics (``em_sparse_wide.cu``, kp = 264 to 2,048: every
+shape and both chunk widths); a fit at k = 300 on it follows the CPU's plain
+passes, and the dense path and the batched kernel refuse kp > 256 naming
+``backend="sparse"``. Every kernel gives
 the same bits from launch to launch (nothing is summed with atomics). The bf16r modes of
 ``precision="fast"`` hold A to 1e-4 and B to 1e-3 of their largest entry (S
 summed in another order can flip the bf16 rounding of a ratio, which moves one
@@ -313,6 +317,91 @@ def test_sparse_pass_topic_widths(cuda, k, mode):
                 _close(ll, ll0, 1e-5)
             else:
                 assert float(ll) == 0.0
+
+
+# the wide walk (em_sparse_wide.cu) past 256 topics: each of its shapes, both
+# chunk widths (kp % 4 != 0 takes scalar chunks) and a shape's largest kp
+WIDE_KPS = [264, 301, 512, 1000, 1001, 1024, 2048]
+WIDE_MODES = {name: mode for name, mode in SPARSE_MODES.items() if not mode[2]}
+
+
+@pytest.mark.parametrize("kp", WIDE_KPS)
+@pytest.mark.parametrize("mode", list(WIDE_MODES))
+def test_wide_passes_match_plain(cuda, kp, mode):
+    """The wide walk in each mode the sparse fit, the refit and the LL test
+    reach, with segments of 1, 2, 127, 128, 129 and up to SEG_LEN entries and
+    an empty owner: held to the plain version at 1e-5, bit for bit on repeat,
+    LL on and off, weighted or not, and counted as the wide launch of its
+    pass."""
+    word, thresh, _ = WIDE_MODES[mode]
+    side, zd, wzT, w_all = _segment_problem(cuda, kp, seed=kp)
+    kernel = cuda_sparse.word_pass if word else cuda_sparse.doc_pass
+    plain = cuda_sparse.word_pass_plain if word else cuda_sparse.doc_pass_plain
+    key = ("word_pass" if word else "doc_pass") + "_wide" + ("" if thresh is None else "_thresh")
+    for weighted in (False, True):
+        w = w_all if weighted else None
+        out0, ll0 = plain(side, zd, wzT, w, thresh=thresh)
+        for compute_ll in (False, True):
+            before = cuda_em.LAUNCHES[key]
+            out, ll = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll)
+            again, ll_again = kernel(side, zd, wzT, w, thresh=thresh, compute_ll=compute_ll)
+            torch.cuda.synchronize()
+            assert cuda_em.LAUNCHES[key] == before + 2
+            assert torch.equal(out, again) and torch.equal(ll, ll_again)
+            assert float(out[10].abs().sum()) == 0  # the owner with no entries
+            _close(out, out0, 1e-5)
+            if compute_ll:
+                _close(ll, ll0, 1e-5)
+            else:
+                assert float(ll) == 0.0
+
+
+def test_wide_walk_takes_the_fp32_ratio_only(cuda):
+    side, zd, wzT, _ = _segment_problem(cuda, 264, seed=1)
+    with pytest.raises(ValueError, match="f32div"):
+        cuda_sparse.word_pass(side, zd, wzT, bf16r=True)
+
+
+def test_wide_plsa_on_cuda_matches_cpu_and_repeats(cuda):
+    """``PLSA(n_components=300, backend="sparse")`` on the card, through
+    ``_staged`` and ``PreparedSell`` on the wide walk: its fit and transform
+    against the CPU's plain passes, a repeat fit bit for bit, and the wide
+    passes counted in ``fit_info_["trace"]``."""
+    from enstop_torch.synthetic import synthetic_corpus
+
+    X, _ = synthetic_corpus(n_docs=300, n_words=700, n_topics=8, seed=2)
+    kw = dict(n_components=300, backend="sparse", n_iter=30, tolerance=0, random_state=0)
+    before = dict(cuda_em.LAUNCHES)
+    gpu = enstop_torch.PLSA(**kw).fit(X)
+    again = enstop_torch.PLSA(**kw).fit(X)
+    cpu = enstop_torch.PLSA(device="cpu", **kw).fit(X)
+    assert cuda_em.LAUNCHES["word_pass_wide"] - before["word_pass_wide"] == 60
+    assert cuda_em.LAUNCHES["doc_pass_wide"] - before["doc_pass_wide"] == 2 * (30 + 4)
+    assert cuda_em.LAUNCHES["word_pass"] == before["word_pass"]
+    assert gpu.fit_info_["trace"]["counters"]["wide_passes"] == 64
+    np.testing.assert_array_equal(gpu.components_, again.components_)
+    np.testing.assert_allclose(gpu.history_, cpu.history_, rtol=1e-5)
+    np.testing.assert_allclose(gpu.components_, cpu.components_, rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(gpu.transform(X[:50]), cpu.transform(X[:50]), rtol=1e-3,
+                               atol=1e-5)
+    thresh = enstop_torch.PLSA(e_step_thresh=1e-16, **kw).fit(X)
+    assert np.all(np.isfinite(thresh.components_))
+    assert cuda_em.LAUNCHES["word_pass_wide_thresh"] - before["word_pass_wide_thresh"] == 30
+
+
+def test_dense_and_batched_paths_raise_past_256_topics(cuda):
+    """The row walk and the batched kernel keep their 256 topics and name
+    ``backend="sparse"`` for wider fits."""
+    X, zd, wz, w = _problem(cuda, torch.float32, False, k=264)
+    with pytest.raises(ValueError, match="backend='sparse'"):
+        cuda_em.em_step_fused(X, zd, wz, w)
+    with pytest.raises(ValueError, match="backend='sparse'"):
+        cuda_em.refit_step_fused(X, zd, wz, w)
+    Xb, zds, wzs, ws = _batch_problem(cuda, torch.float32, 2, 264, False)
+    with pytest.raises(ValueError, match="backend='sparse'"):
+        cuda_batch.batched_em_fit(Xb, zds, wzs, ws, 1)
+    with pytest.raises(ValueError, match="backend='sparse'"):
+        enstop_torch.PLSA(n_components=300, n_iter=2).fit(X.cpu().numpy())
 
 
 @pytest.mark.parametrize("precision", ["default", "fast"])

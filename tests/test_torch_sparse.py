@@ -247,7 +247,10 @@ def test_walk_shape_is_a_built_shape_for_every_topic_count():
     kernel is built at (``kShapes`` in ``lane_walk.cuh``, which ``em_sparse.cu``
     and the dense row walk share, for either chunk width) whose lane groups
     divide the warp and cover kp topics, with at most 16 topics a lane in
-    registers; the sweeps' shapes are their sources' too."""
+    registers; past ``MAX_NARROW_KP`` up to the sparse passes' bound
+    ``MAX_KP``, a shape of the wide walk (``kWideShapes`` in
+    ``em_sparse_wide.cu``: one entry a warp); the sweeps' shapes are their
+    sources' too."""
     import re
     from pathlib import Path
 
@@ -263,12 +266,102 @@ def test_walk_shape_is_a_built_shape_for_every_topic_count():
     assert built("kShapes", "lane_walk.cuh") == cuda_sparse.WALK_SHAPES
     assert built("kSweepShapes", "em_sparse.cu") == cuda_sparse.SWEEP_SHAPES
     assert built("kSweepShapes", "row_walk.cuh") == cuda_em.SWEEP_SHAPES
-    for kp in range(1, cuda_sparse.MAX_KP + 1):
+    assert built("kWideShapes", "em_sparse_wide.cu") == cuda_sparse.WIDE_SHAPES
+    for kp in range(1, cuda_sparse.MAX_NARROW_KP + 1):
         L, tpl = cuda_sparse.walk_shape(kp)
         assert (L, tpl) in cuda_sparse.WALK_SHAPES, kp
         assert 32 % L == 0 and L * tpl >= kp and tpl <= 16, (kp, L, tpl)
+    for kp in range(cuda_sparse.MAX_NARROW_KP + 1, cuda_sparse.MAX_KP + 1):
+        L, tpl = cuda_sparse.walk_shape(kp)
+        assert (L, tpl) in cuda_sparse.WIDE_SHAPES, kp
+        assert L == 32 and L * tpl >= kp and L * tpl < 2 * kp, (kp, L, tpl)
+    assert cuda_sparse.MAX_KP == 32 * max(tpl for _, tpl in cuda_sparse.WIDE_SHAPES) == 2048
     for L, tpl in cuda_sparse.SWEEP_SHAPES:
         assert 32 % L == 0 and tpl % 4 == 0
     for kp in (0, cuda_sparse.MAX_KP + 1):
         with pytest.raises(ValueError):
             cuda_sparse.walk_shape(kp)
+
+
+# Past MAX_NARROW_KP topics the card runs the wide walk (``csrc/em_sparse_wide.cu``),
+# which the ``cuda`` kernel tests hold to the plain passes; these hold the plain
+# passes, the sparse fit and the estimator to the JAX package at k = 300, so the
+# chain from the wide kernel reaches the reference. Tolerances as above.
+WIDE_K = 300
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS, ids=["off", "1e-16", "1e-3", "3e-2"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_wide_em_step_matches_jax(thresh, weighted):
+    X, zd, wz, w = _setup(seed=3, k=WIDE_K, weighted=weighted)
+    assert cuda_sparse.walk_shape(WIDE_K) in cuda_sparse.WIDE_SHAPES
+    prep = port_sell.prepare_sell(X, standardize=False, device="cpu")
+    got = port_sell.em_step_sell(prep, _t(zd), _t(wz), w=_t(w), thresh=thresh)
+    rows, cols, vals = _coo(X)
+    wants = {
+        "coo": jax_coo.em_step_coo(_j(rows), _j(cols), _j(vals), _j(zd), _j(wz), *X.shape,
+                                   sample_weight=_j(w),
+                                   probability_threshold=1e-32 if thresh is None else thresh),
+        "sell": jax_sell.em_step_sell(jax_sell.prepare_sell(X, standardize=False).dev,
+                                      _j(zd), _j(wz), w=_j(w), thresh=thresh),
+    }
+    for name, (zd1, wz1, ll1) in wants.items():
+        _close(got[0], zd1, err_msg=name, **STEP_TOL)
+        _close(got[1], wz1, err_msg=name, **STEP_TOL)
+        _close(float(got[2]), float(ll1), rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("thresh", THRESHOLDS, ids=["off", "1e-16", "1e-3", "3e-2"])
+def test_wide_refit_and_ll_match_jax(thresh):
+    X, zd, wz, w = _setup(seed=11, k=WIDE_K, weighted=True)
+    prep = port_sell.prepare_sell(X, standardize=False, device="cpu")
+    zd2, ll2 = port_sell.refit_step_sell(prep, _t(zd), _t(wz), w=_t(w), thresh=thresh)
+    jdev = jax_sell.prepare_sell(X, standardize=False).dev
+    zd1, ll1 = jax_sell.refit_step_sell(jdev, _j(zd), _j(wz), w=_j(w), thresh=thresh)
+    _close(zd2, zd1, **STEP_TOL)
+    _close(float(ll2), float(ll1), rtol=1e-5)
+    ll = port_sell.log_likelihood_sell(prep, _t(zd), _t(wz), w=_t(w))
+    _close(float(ll), float(jax_sell.log_likelihood_sell(jdev, _j(zd), _j(wz), w=_j(w))),
+           rtol=1e-5)
+
+
+@pytest.mark.parametrize("thresh,tolerance", [(1e-32, 0.0), (1e-16, 0.0), (1e-3, 1e-3)])
+def test_wide_sell_fit_trajectory_matches_jax(thresh, tolerance):
+    X, zd, wz, w = _setup(seed=17, n=80, m=120, k=WIDE_K, density=0.1, weighted=True)
+    kw = dict(sample_weight=w, n_iter=30, n_iter_per_test=5, tolerance=tolerance,
+              e_step_thresh=thresh)
+    prep = port_sell.prepare_sell(X, standardize=False, device="cpu")
+    got = port_sell.sell_fit(prep, zd, wz, **kw)
+    want = jax_sell.sell_fit(jax_sell.prepare_sell(X, standardize=False), zd, wz, **kw)
+    assert got[2] == int(want[2]) and got[5] == int(want[5])
+    _close(got[4][:got[5]], np.asarray(want[4])[:got[5]], rtol=1e-5)
+    _close(got[3], float(want[3]), rtol=1e-5)
+    _close(got[0], want[0], **TRAJECTORY_TOL)
+    _close(got[1], want[1], **TRAJECTORY_TOL)
+
+    refit = port_sell.sell_refit(prep, zd, got[1], **kw)
+    want_refit = jax_sell.sell_refit(jax_sell.prepare_sell(X, standardize=False), zd,
+                                     np.asarray(got[1]), **kw)
+    assert refit[2] == int(want_refit[2])
+    _close(refit[0], want_refit[0], **TRAJECTORY_TOL)
+
+
+def test_wide_sparse_plsa_estimator_matches_jax():
+    """``PLSA(n_components=300, backend="sparse")`` of both packages from one
+    ``random_state``: the same steps, the LL trace rtol 1e-5, factors and a
+    transform within the multi-step tolerance."""
+    import enstop_torch
+    import enstop_tpu
+
+    X, _, _, w = _setup(seed=23, n=90, m=140, k=1, density=0.1, weighted=True)
+    kw = dict(n_components=WIDE_K, random_state=4, backend="sparse", n_iter=20,
+              n_iter_per_test=5, tolerance=0.0)
+    port = enstop_torch.PLSA(device="cpu", **kw).fit(X, sample_weight=w)
+    ref = enstop_tpu.PLSA(precision="highest", **kw).fit(X, sample_weight=w)
+    assert port.fit_info_["backend"] == "sparse"
+    assert port.fit_info_["trace"]["counters"]["wide_passes"] > 0
+    assert port.n_iter_ == ref.n_iter_ == 20
+    _close(port.history_, ref.history_, rtol=1e-5)
+    _close(port.embedding_, ref.embedding_, **TRAJECTORY_TOL)
+    _close(port.components_, ref.components_, **TRAJECTORY_TOL)
+    _close(port.transform(X[:40]), ref.transform(X[:40]), **TRAJECTORY_TOL)
