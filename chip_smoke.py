@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
-``em_sparse.cu``, ``em_sparse_wide.cu``, ``em_batch.cu`` and ``umap_layout.cu``,
-one ``nvcc`` each, started together)
+``em_sparse.cu``, ``em_sparse_wide.cu``, ``em_batch.cu``, ``umap_layout.cu`` and
+``mt_uniform.cu``, one ``nvcc`` each, started together)
 and checks each kernel (the dense fp32 and bf16-responsibilities modes of
 ``precision="fast"``, the sparse word and doc passes, plain and thresholded,
 the batched row and word passes; phase 17: the dense B pass and the word
@@ -126,6 +126,13 @@ launch counts set to 0 just before it and read just after:
     5e-5 (widest row, l1). Every kernel instance up to 256 topics giving a
     parent's bits is checked by ``scripts/torch_narrow_bits.py``, run on the
     parent's checkout and this one in one call.
+19. the random init drawn on the card (phase 22, ``mt_uniform.cu``) at the
+    cell ``nytimes-k1000.fit-wide``'s shapes (300,000 documents, 102,660
+    words, k = 1,000): ``plsa_init``'s factors and then ``_refit_init``'s
+    into the sparse layout's (n, k) and (k, m), bit for bit the host's, the
+    ``RandomState`` after each where the host's draw leaves it, a second
+    draw from the same state the same bits; timed against the host's draw,
+    split between the twist and the rows kernels by ``torch.profiler``.
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -221,6 +228,7 @@ SPARSE_SOURCE = "enstop_torch/ops/csrc/em_sparse.cu"
 WIDE_SOURCE = "enstop_torch/ops/csrc/em_sparse_wide.cu"
 BATCH_SOURCE = "enstop_torch/ops/csrc/em_batch.cu"
 LAYOUT_SOURCE = "enstop_torch/ops/csrc/umap_layout.cu"
+MT_SOURCE = "enstop_torch/ops/csrc/mt_uniform.cu"
 KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "em": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:176"),
     "refit": (DENSE_SOURCE, "enstop_tpu/ops/pallas_em.py:224"),
@@ -240,6 +248,8 @@ KERNELS = {  # name in LAUNCHES: (source, the TPU kernel it replaces)
     "doc_pass_wide_thresh": (WIDE_SOURCE, "enstop_tpu/ops/pallas_sell.py:490"),
     # no TPU kernel: the JAX package's layout is one compiled lax.fori_loop
     "umap_layout": (LAYOUT_SOURCE, "enstop_tpu/cluster/umap.py:183"),
+    # no TPU kernel: the JAX package draws the init on the host
+    "mt_uniform": (MT_SOURCE, "enstop_tpu/ops/init.py (numpy, on the host)"),
 }
 # phase 17: the ratio modes built for the divide experiment's step only
 # (cuda_em.RATIO_MODES less "f32div" and "bf16r", which are rows em / em_bf16r)
@@ -273,6 +283,9 @@ WIDE_FIT = dict(n_components=1000, backend="sparse", n_iter=20, n_iter_per_test=
 WIDE_TRANSFORM_L1 = 5e-5
 WIDE_CELL, WIDE_CORPUS_SEED = "nytimes-k1000.fit-wide", 2_400_210_001
 WIDE_BLOCK_BYTES = 1 << 30  # plain_pass_blocked: gathered rows a block
+# phase 22: the init drawn on the card at the cell nytimes-k1000.fit-wide's
+# documents, words and topics
+MT_SHAPE, MT_SEED = (300_000, 102_660, 1_000), 2_400_220_001
 
 
 def check(ok, what):
@@ -1840,6 +1853,91 @@ def wide_phase(XC2, smi, cuda_em, em, totals):
     return worst, timing, bounds
 
 
+def mt_init_phase(smi, totals):
+    """Phase 22: the random init drawn on the card (``mt_uniform.cu``) at the
+    cell ``nytimes-k1000.fit-wide``'s shapes: ``plsa_init``'s factors, then
+    ``_refit_init``'s, into the sparse layout's (n, k) and (k, m), each bit
+    for bit the host's, and the ``RandomState`` after each where the host's
+    draw leaves it; a second draw from the same state repeats the bits and
+    runs under ``torch.profiler``, which splits the draw between the twist and
+    the rows kernels. The draw's wall time (its state read back waits for it)
+    against the host's."""
+    import scipy.sparse as sp
+    from torch.profiler import ProfilerActivity, profile
+
+    from enstop_torch.ops import _build
+    from enstop_torch.ops import init as init_ops
+    from enstop_torch.ops.driver import _refit_init
+
+    t_phase = time.perf_counter()
+    n, m, k = MT_SHAPE
+    dev = torch.device("cuda")
+
+    def state(rng):
+        st = rng.get_state(legacy=False)
+        return (st["state"]["key"].astype(np.uint32).tobytes(), int(st["state"]["pos"]),
+                st["has_gauss"], st["gauss"])
+
+    def same(got, want):
+        return torch.equal(got.view(torch.int32), torch.from_numpy(want.view(np.int32)).to(dev))
+
+    def draw(rng, targets, guard=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        init_ops._uniform_rows(rng, targets, guard)
+        return 1e3 * (time.perf_counter() - t0)
+
+    host = np.random.RandomState(MT_SEED)
+    t0 = time.perf_counter()
+    zd_h, wz_h = init_ops.plsa_init(sp.csr_matrix((n, m)), k, rng=host)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    host_after_init = state(host)
+    t0 = time.perf_counter()
+    refit_h = _refit_init(host, n, k)
+    host_refit_ms = 1e3 * (time.perf_counter() - t0)
+
+    rng = np.random.RandomState(MT_SEED)
+    check(init_ops._draws_on_device(rng, dev, (n + m) * k), "the cell's init is drawn on the card")
+    zd = torch.zeros((n, k), device=dev)
+    wz = torch.zeros((k, m), device=dev)
+    refit = torch.zeros((n, k), device=dev)
+    launches = _build.LAUNCHES["mt_uniform"]
+    card_ms = draw(rng, [wz, zd])
+    chunks = _build.LAUNCHES["mt_uniform"] - launches
+    check(same(wz, wz_h) and same(zd, zd_h), "the card's init is plsa_init's bit for bit")
+    check(state(rng) == host_after_init, "the rng left where the host's draw leaves it")
+    card_refit_ms = draw(rng, [refit], guard=False)
+    check(same(refit, refit_h), "the card's refit init is _refit_init's bit for bit")
+    check(state(rng) == state(host), "the rng left where the host's refit draw leaves it")
+
+    again = np.random.RandomState(MT_SEED)
+    zd.zero_()
+    wz.zero_()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        init_ops._uniform_rows(again, [wz, zd])
+    check(same(wz, wz_h) and same(zd, zd_h), "a second draw repeats the bits")
+    split = {}
+    for event in prof.key_averages():
+        total = getattr(event, "device_time_total", None) or getattr(event, "cuda_time_total", 0)
+        for name in ("mt_twist", "uniform_long_rows", "uniform_rows"):
+            if name in event.key and total > 0:
+                split[name] = split.get(name, 0) + round(total / 1e3, 3)
+                break
+    totals["mt_uniform"] += _build.LAUNCHES["mt_uniform"] - launches
+    values = (n + m) * k
+    print(f"phase 22 init on the card at the cell nytimes-k1000.fit-wide's shapes (n {n}, m {m}, "
+          f"k {k}: {values} values, {2 * values} words in {chunks} chunks) on {smi}: bit for bit "
+          f"plsa_init's and _refit_init's, the rng's state the host's; the draw {card_ms:.1f} ms "
+          f"(host {host_ms:.1f} ms), the refit's {card_refit_ms:.1f} ms (host "
+          f"{host_refit_ms:.1f} ms); device ms by kernel (profiler) {json.dumps(split)}")
+    print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    del zd, wz, refit
+    # bit-exact: no error; the rows kernel reads 8 B and writes 4 B a value, the
+    # twist writes 8 B a value (its serial chain of 3 barriers a twist is not counted)
+    return ({"mt_uniform": 0.0}, {"mt_uniform": (card_ms, host_ms)},
+            {"mt_uniform": bound(20 * values, 0)})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1917,6 +2015,10 @@ def main():
         check(len(found) == 30 and len(main) == 5
               and all(spill == 0 for _, spill in main.values()),
               "the em_sparse_wide instances are built, those at kp = 1000 without a spill")
+    build = _build.BUILD_LOG.get("mt_uniform")
+    if build is not None:
+        print(f"phase 1 build: mt_uniform built (nvcc {build['seconds']:.2f} s); registers, "
+              f"spill store bytes by kernel {json.dumps(ptxas_instances(build['report']))}")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
 
     # -- phase 2: each dense kernel against its plain version -----------------
@@ -2505,6 +2607,8 @@ def main():
     loader_routing_phase(X, labels, model, fit_launches, smi, cuda_em, em, totals)
     ensemble_batch_phase(X, smi, cuda_em, em, totals)
     for table, part in zip((worst, timing, bounds), wide_phase(XC2, smi, cuda_em, em, totals)):
+        table.update(part)
+    for table, part in zip((worst, timing, bounds), mt_init_phase(smi, totals)):
         table.update(part)
 
     print(json.dumps({"kernels": [

@@ -44,7 +44,8 @@ NVCC_FLAGS = (
 # the wide walk (em_sparse_wide.cu), plain and thresholded; then the dense B
 # pass and the word pass in the five ratio modes that only the divide
 # experiment's step runs (cuda_em._em_accumulators_ratio); then the UMAP
-# layout, every epoch in one launch (cuda_umap.py)
+# layout, every epoch in one launch (cuda_umap.py); then the random init drawn
+# on the card, a chunk of rows a count (its twist and its rows, ops/init.py)
 LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "word_pass": 0, "word_pass_thresh": 0, "word_pass_bf16r": 0,
             "doc_pass": 0, "doc_pass_thresh": 0, "batch": 0, "batch_word": 0,
@@ -52,7 +53,7 @@ LAUNCHES = {"em": 0, "refit": 0, "ll": 0, "em_bf16r": 0, "refit_bf16r": 0,
             "doc_pass_wide_thresh": 0,
             **{f"{kind}_{mode}": 0 for mode in RATIO_MODES[1:-1]
                for kind in ("em", "word_pass")},
-            "umap_layout": 0}
+            "umap_layout": 0, "mt_uniform": 0}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _D, _U = ctypes.c_double, ctypes.c_uint
@@ -87,6 +88,11 @@ _SIGNATURES = {
         # b_minus_1, c_att, c_rep, seed, shared, blocks, threads, stream
         "enstop_umap_layout": (_P, _P, _LL, _I, _I, _I, _I, _D, _F, _F, _F, _F, _F, _U, _I,
                                _I, _I, _P),
+    },
+    "mt_uniform": {
+        # host_key, host_pos, state, scratch, rows, len, piece, guard, sums, room, out,
+        # stride, stream
+        "enstop_mt_uniform": (_P, _I, _P, _P, _LL, _LL, _LL, _I, _P, _LL, _P, _LL, _P),
     },
 }
 

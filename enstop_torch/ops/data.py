@@ -75,6 +75,15 @@ def _on_device(a, dev):
     return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
 
+def _padded_on(a, shape, dev):
+    """The 2-D host array ``a`` as float32 in the corner of a zero ``shape``
+    tensor on ``dev``; the copy from the host waits for it."""
+    out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    count("host_syncs")
+    out[:a.shape[0], :a.shape[1]] = torch.from_numpy(np.asarray(a, dtype=np.float32))
+    return out
+
+
 class _Staged:
     """A corpus staged on a device once, dense (:class:`~.driver.PreparedCounts`)
     or sparse (:class:`~.sell.PreparedSell`). A fit asks either the same:

@@ -1,9 +1,10 @@
 """Fit and refit drivers: host-side orchestration around the EM loops
 (counterpart of ``enstop_tpu/ops/driver.py``).
 
-Initialise the factors on the host, stage the counts on the device as a
-zero-padded dense matrix (or as the sparse layout of :mod:`.sell`), run the
-EM loop, undo the padding.
+Stage the counts on the device as a zero-padded dense matrix (or as the
+sparse layout of :mod:`.sell`), initialise the factors (the random init drawn
+on the card where :func:`.init._draws_on_device` allows, the host's bits
+either way), run the EM loop, undo the padding.
 
 Backends, resolved from the explicit ``device``:
 
@@ -33,10 +34,11 @@ import torch
 from ..profiling import count, is_open, request, span
 from ..utils import check_random_state, standardize_input
 from . import cuda_batch, cuda_em, em as em_ops
-from .data import (COL_MULTIPLE, K_MULTIPLE, ROW_MULTIPLE, _is_staged, _Staged, _weighted,
-                   pad_factors, pad_vector, resolve_device, round_up, ship_coo, unpad_factors)
+from .data import (COL_MULTIPLE, K_MULTIPLE, ROW_MULTIPLE, _is_staged, _padded_on, _Staged,
+                   _weighted, pad_factors, pad_vector, resolve_device, round_up, ship_coo,
+                   unpad_factors)
 from .fit import FitResult, _Trace, em_fit_loop, em_fit_loop_folded
-from .init import plsa_init
+from .init import _draws_on_device, _uniform_rows, plsa_init
 from .sell import _material_thresh, prepare_sell, word_side
 
 __all__ = [
@@ -465,7 +467,7 @@ def _fit(X, k, sample_weight, init, n_iter, n_iter_per_test, tolerance, e_step_t
         prep = _staged(X, backend, e_step_thresh, x_dtype, device)
         w = prep._weights(sample_weight)
     with span("init"):
-        zd, wz = prep._pad(*plsa_init(X, k, init=init, rng=rng))
+        zd, wz = _initial_factors(prep, X, k, init, rng)
     with span("loop") as loop:
         res = prep._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance,
                         prep._steps(precision, "sparse"), e_step_thresh)
@@ -500,11 +502,39 @@ def plsa_refit(
         prep = _staged(X, backend, e_step_thresh, x_dtype, device)
         w = prep._weights(sample_weight)
     with span("init"):
-        zd, wz = prep._pad(_refit_init(rng, prep.n, k), topics)
+        zd, wz = _refit_factors(prep, k, topics, rng)
     with span("loop"):
         res = prep._fit(zd, wz, w, n_iter, n_iter_per_test, tolerance,
                         prep._steps(precision, "sparse refit"), e_step_thresh, refit=True)
         return _read_back(res.state[0])[0][:prep.n, :k]
+
+
+def _initial_factors(prep, X, k, init, rng):
+    """The fit's initial factors at the staged corpus's shapes (``prep._padded``):
+    :func:`.init.plsa_init`'s, drawn on the card (``P(w|z)`` first, as the
+    host draws) where :func:`.init._draws_on_device` allows, else on the host
+    and padded (counter ``device_init_values`` 0). The same bits either way."""
+    if init == "random" and _draws_on_device(rng, prep.device, (prep.n + prep.m) * k):
+        n_pad, kp, m_pad = prep._padded(k)
+        zd = torch.zeros((n_pad, kp), device=prep.device)
+        wz = torch.zeros((kp, m_pad), device=prep.device)
+        _uniform_rows(rng, [wz[:k, :prep.m], zd[:prep.n, :k]])
+        return zd, wz
+    count("device_init_values", 0)
+    return prep._pad(*plsa_init(X, k, init=init, rng=rng))
+
+
+def _refit_factors(prep, k, topics, rng):
+    """The refit's initial ``P(z|d)`` (:func:`_refit_init`'s bits, drawn on
+    the card where :func:`.init._draws_on_device` allows) and the frozen
+    ``topics``, at the staged corpus's shapes."""
+    if _draws_on_device(rng, prep.device, prep.n * k):
+        n_pad, kp, m_pad = prep._padded(k)
+        zd = torch.zeros((n_pad, kp), device=prep.device)
+        _uniform_rows(rng, [zd[:prep.n, :k]], guard=False)
+        return zd, _padded_on(topics, (kp, m_pad), prep.device)
+    count("device_init_values", 0)
+    return prep._pad(_refit_init(rng, prep.n, k), topics)
 
 
 def _refit_init(rng, n, k):

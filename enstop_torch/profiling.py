@@ -41,9 +41,13 @@ The spans of the program, each under its parent, in order:
                       again)
     ``stage.layout``  the layout built there: the dense scatter and the word
                       side, or the sparse path's two sides
-  ``init``      the initial factors drawn and padded on the host
-  ``loop``      the EM loop, from the factors' copy to the device to the
-                factors read back: ``fit_info_["wall_time_s"]`` is its length
+  ``init``      the initial factors: the random init drawn on the card,
+                or any init drawn on the host and padded (counter
+                ``device_init_values``: the values drawn on the card, 0
+                where the host drew)
+  ``loop``      the EM loop, from the factors placed on the device (a copy
+                where the host drew them) to the factors read back:
+                ``fit_info_["wall_time_s"]`` is its length
     ``readback``  the factors to the host
   ``finish``    the estimator's zero rows put back and its record kept
 ``transform``   ``PLSA.transform``, to the profiler only: ``validate``,
@@ -79,12 +83,14 @@ device (pageable memory: the copy waits for the stream), each value read
 back (a test point's log-likelihood, an index bound, a segment count) and
 each ``bincount`` (it reads its input's bounds back). It counts the same on
 any device, so a CPU fit reads what the same fit on a card would; where a
-path runs only on the card (the UMAP layout's epochs on the device) it
-counts there alone. No span runs per EM step, and no counter but
-``wide_passes``: the sparse passes past 256 topics (``ops.cuda_sparse``'s
-wide walk, about 0.1 s a pass at k = 1,000 on the whole UCI NYTimes
-corpus), one a pass, counted the same on any device and never at 256 topics
-or fewer. The counters ``coo_as_is`` and ``coo_canonicalized`` count the
+path runs only on the card it counts there alone: the UMAP layout's epochs
+on the device, and the random init drawn there (``ops.init._uniform_rows``:
+one wait, the stream's state read back, where the host's init copies its
+two factors up; a refit's copies its topics up besides). No span runs per
+EM step, and no counter but ``wide_passes``: the sparse passes past 256
+topics (``ops.cuda_sparse``'s wide walk, about 0.1 s a pass at k = 1,000 on
+the whole UCI NYTimes corpus), one a pass, counted the same on any device
+and never at 256 topics or fewer. The counters ``coo_as_is`` and ``coo_canonicalized`` count the
 corpora shipped as they stood and those canonicalised on the host first
 (``ops.data.ship_coo``).
 """

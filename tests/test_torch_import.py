@@ -109,7 +109,7 @@ def test_exports():
         "doc_pass_wide_thresh",
         *(f"{kind}_{mode}" for mode in ("recip_mul", "lax_recip", "nr1", "nr2", "bf16recip_x32")
           for kind in ("em", "word_pass")),
-        "umap_layout"}
+        "umap_layout", "mt_uniform"}
 
 
 def test_default_cuda_device_raises_without_a_card():

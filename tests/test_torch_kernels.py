@@ -29,7 +29,11 @@ bit for bit, stays bit for bit the same when every copy is held back, and
 agrees with its CPU run and the resident sparse fit (history rtol 1e-5,
 factors rtol 1e-3 / atol 1e-5). The NMF multiplicative updates on the card
 lie within 1e-3 of the largest entry of their CPU run after 50 steps
-(float32 products summed in another order).
+(float32 products summed in another order). The random init drawn on the card
+(``mt_uniform.cu``) is ``plsa_init``'s and ``_refit_init``'s bit for bit,
+padded or not, in one chunk or many, from a fresh, a part-used or a
+Gaussian-holding ``RandomState``, which it leaves as the host's draw does; the
+fits and refits that start from it are the host-init fits' bits.
 """
 
 import numpy as np
@@ -968,3 +972,104 @@ def test_input_formats_give_the_same_bits(cuda, backend):
         with pytest.raises(ValueError):
             model.transform(bad)
     assert dict(_build.LAUNCHES) == launches and torch.cuda.memory_allocated() == allocated
+
+
+# -- the random init drawn on the card (csrc/mt_uniform.cu) -------------------------
+
+
+def _mt_rng(seed, before):
+    rng = np.random.RandomState(seed)
+    if before == "odd":
+        rng.randint(0, 1000, size=3)  # an odd number of words used
+    elif before == "gauss":
+        rng.standard_normal(3)  # a cached Gaussian
+    return rng
+
+
+def _mt_state(rng):
+    st = rng.get_state(legacy=False)
+    return (st["state"]["key"].astype(np.uint32).tobytes(), int(st["state"]["pos"]),
+            st["has_gauss"], st["gauss"])
+
+
+def _mt_bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("chunk", [1 << 23, 3_000])  # one chunk a factor; many, rows split
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("k,n,m,seed,before", [
+    (20, 4_001, 613, 0, None), (1_000, 77, 9_001, 2**32 - 1, None),
+    (7, 10_007, 20_011, 3, "odd"), (129, 901, 300, 4, "gauss"), (1, 65_000, 1_000, 5, None)])
+def test_mt_uniform_is_the_host_draw(cuda, monkeypatch, chunk, layout, k, n, m, seed, before):
+    """The kernels' factors are ``plsa_init``'s and ``_refit_init``'s bit for
+    bit, in the dense padded and the sparse layout, the padding exactly zero;
+    the ``RandomState`` is left where the host's draw leaves it; a second
+    launch from the same state repeats the bits."""
+    import scipy.sparse as sp
+
+    from enstop_torch.ops import init as init_ops
+    from enstop_torch.ops.data import K_MULTIPLE, round_up
+    from enstop_torch.ops.driver import _refit_init
+
+    monkeypatch.setattr(init_ops, "CHUNK_WORDS", chunk)
+    n_pad, kp, m_pad = ((round_up(n, 8), round_up(k, K_MULTIPLE), round_up(m, 128))
+                        if layout == "dense" else (n, k, m))
+    host = _mt_rng(seed, before)
+    zd_h, wz_h = init_ops.plsa_init(sp.csr_matrix((n, m)), k, rng=host)
+    refit_h = _refit_init(host, n, k)
+
+    for _ in range(2):
+        rng = _mt_rng(seed, before)
+        assert init_ops._draws_on_device(rng, cuda, (n + m) * k)
+        zd = torch.zeros((n_pad, kp), device=cuda)
+        wz = torch.zeros((kp, m_pad), device=cuda)
+        init_ops._uniform_rows(rng, [wz[:k, :m], zd[:n, :k]])
+        refit = torch.zeros((n_pad, kp), device=cuda)
+        init_ops._uniform_rows(rng, [refit[:n, :k]], guard=False)
+        zd, wz, refit = zd.cpu().numpy(), wz.cpu().numpy(), refit.cpu().numpy()
+        assert np.array_equal(_mt_bits(zd[:n, :k]), _mt_bits(zd_h))
+        assert np.array_equal(_mt_bits(wz[:k, :m]), _mt_bits(wz_h))
+        assert np.array_equal(_mt_bits(refit[:n, :k]), _mt_bits(refit_h))
+        for a, rows, cols in ((zd, n, k), (wz, k, m), (refit, n, k)):
+            assert not a[rows:].any() and not a[:, cols:].any()  # the padding untouched
+        assert _mt_state(rng) == _mt_state(host)
+
+
+@pytest.mark.parametrize("backend", ["auto", "sparse"])
+def test_fits_from_the_cards_init_are_the_host_inits(cuda, monkeypatch, backend):
+    """A ``PLSA`` fit (dense and sparse) and a ``plsa_refit`` whose init is
+    drawn on the card give the factors, the LL trace and the steps of the same
+    calls with the host's init, bit for bit, and leave the same rng state."""
+    import scipy.sparse as sp
+
+    from enstop_torch.ops import _build
+    from enstop_torch.ops import init as init_ops
+    from enstop_torch.ops.driver import plsa_refit
+    from enstop_torch.synthetic import synthetic_corpus
+
+    X, _ = synthetic_corpus(n_docs=3_000, n_words=1_700, n_topics=24, seed=3)
+    X = sp.csr_matrix(X).astype(np.int64)
+    X = X[X.getnnz(axis=1) > 0]
+    k = 24  # the fit draws (n + 1,700) 24 values, the refit n 24, both above the card's least
+
+    def run():
+        rng = np.random.RandomState(11)
+        model = enstop_torch.PLSA(n_components=k, n_iter=40, n_iter_per_test=10, tolerance=0,
+                                  random_state=rng, backend=backend).fit(X)
+        doc = plsa_refit(X, model.components_, random_state=rng, backend=backend)
+        counters = model.fit_info_["trace"]["counters"]
+        return (model.components_, model.embedding_, np.asarray(model.history_),
+                model.n_iter_, doc), _mt_state(rng), counters
+
+    launches = _build.LAUNCHES["mt_uniform"]
+    card, card_state, card_counters = run()
+    # a chunk each: the fit's P(w|z) and P(z|d), the refit's P(z|d)
+    assert _build.LAUNCHES["mt_uniform"] - launches == 3
+    assert card_counters["device_init_values"] == (X.shape[0] + X.shape[1]) * k
+    monkeypatch.setattr(init_ops, "DEVICE_DRAW_MIN", 10**12)
+    host, host_state, host_counters = run()
+    assert host_counters["device_init_values"] == 0
+    assert card_state == host_state
+    for got, want in zip(card, host):
+        np.testing.assert_array_equal(got, want)

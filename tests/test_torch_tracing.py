@@ -15,7 +15,8 @@ steps and its stable topics.
 On the card (marked ``cuda``; ``python -m pytest tests/test_torch_tracing.py
 -q --noconftest -m cuda``): ``host_syncs`` equals the synchronisations that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports over a fit, dense and
-sparse, and over an ensemble call. This file imports no JAX.
+sparse, with the host's init and with the init drawn on the card, and over an
+ensemble call. This file imports no JAX.
 """
 
 import json
@@ -29,6 +30,7 @@ import torch
 import enstop_torch
 from enstop_torch import profiling
 from enstop_torch.models import ensemble
+from enstop_torch.ops import init as init_ops
 
 SCHEDULE = dict(n_iter=100, n_iter_per_test=10, tolerance=0.0)
 STAGED = ["stage", *["stage.copy"] * 3, "stage.coo", "stage.layout"]
@@ -83,7 +85,8 @@ def test_a_fit_records_its_spans(path, kind):
             X.indptr.nbytes + X.indices.nbytes + X.data.nbytes)
     loop = spans[by_name["loop"]]
     assert model.fit_info_["wall_time_s"] == loop["end"] - loop["start"]
-    counters = {"host_syncs": HOST_SYNCS[path, kind]}
+    # the host drew the init: none of it on a card
+    counters = {"host_syncs": HOST_SYNCS[path, kind], "device_init_values": 0}
     if kind == "raw":
         counters["coo_as_is"] = 1  # a canonical CSR ships as it stands
     assert record["counters"] == counters
@@ -325,11 +328,39 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["cuda", "sparse"])
-def test_host_syncs_are_the_sync_debug_modes(cuda, backend):
+def test_host_syncs_are_the_sync_debug_modes(cuda, backend, monkeypatch):
+    """The host's init (its draw held on the host here; the card's is the next
+    test's)."""
+    monkeypatch.setattr(init_ops, "DEVICE_DRAW_MIN", 10**12)
     X = _corpus(n=600, m=900)
     model = enstop_torch.PLSA(n_components=20, random_state=0, backend=backend,
                               **SCHEDULE)
-    model.fit(X)  # builds the kernels
+    syncs, sites = _fit_syncs(model, X)
+    counted = model.fit_info_["trace"]["counters"]["host_syncs"]
+    assert len(syncs) == counted, sites
+    assert counted == HOST_SYNCS["sparse" if backend == "sparse" else "dense", "raw"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "sparse"])
+def test_host_syncs_of_the_init_drawn_on_the_card(cuda, backend):
+    """(600 + 900) 20 values: the init is drawn on the card, which waits once
+    (the stream's state read back) where the host's init copies two factors."""
+    X = _corpus(n=600, m=900)
+    model = enstop_torch.PLSA(n_components=20, random_state=0, backend=backend,
+                              **SCHEDULE)
+    syncs, sites = _fit_syncs(model, X)
+    counters = model.fit_info_["trace"]["counters"]
+    assert len(syncs) == counters["host_syncs"], sites
+    assert counters["host_syncs"] == HOST_SYNCS[
+        "sparse" if backend == "sparse" else "dense", "raw"] - 1
+    assert counters["device_init_values"] == (600 + 900) * 20
+
+
+def _fit_syncs(model, X):
+    """The synchronisations the sync debug mode reports over ``model.fit(X)``
+    after a first fit has built the kernels, and their sites."""
+    model.fit(X)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -339,10 +370,7 @@ def test_host_syncs_are_the_sync_debug_modes(cuda, backend):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
-    sites = sorted({(w.filename.rsplit("/", 1)[-1], w.lineno) for w in syncs})
-    counted = model.fit_info_["trace"]["counters"]["host_syncs"]
-    assert len(syncs) == counted, sites
-    assert counted == HOST_SYNCS["sparse" if backend == "sparse" else "dense", "raw"]
+    return syncs, sorted({(w.filename.rsplit("/", 1)[-1], w.lineno) for w in syncs})
 
 
 @pytest.mark.cuda
