@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 23]
 
 Builds the CUDA kernels from ``enstop_torch/ops/csrc`` (``em_dense.cu``,
 ``em_sparse.cu``, ``em_sparse_wide.cu``, ``em_batch.cu``, ``umap_layout.cu`` and
@@ -133,6 +133,16 @@ launch counts set to 0 just before it and read just after:
     ``RandomState`` after each where the host's draw leaves it, a second
     draw from the same state the same bits; timed against the host's draw,
     split between the twist and the rows kernels by ``torch.profiler``.
+20. ``EnsembleTopics(n_components=20, model="nmf")`` at the corpus of the
+    cell ``nytimes-enstop-nmf-k20.ensemble-nmf`` (phase 23; the whole UCI
+    NYTimes shape, 69.7 M nonzeros): 16 bootstrap runs of 200 KL updates on
+    the sparse passes, the combine and the 200-update embedding, through
+    ``EnsembleTopics.fit``; its launches, its trace's NMF spans and
+    counters, runs 0 and 15 and the embedding against the float64 reference
+    ``benchmark/reference/ensemble_nmf.py`` by the cell's limits, and the
+    SHA-256 digests of ``components_`` and ``embedding_``.
+    ``python3 chip_smoke.py --phase 23`` runs phase 1's build and this phase
+    alone (about 2 minutes).
 
 Phase 1 prints the sparse walk's shape (``cuda_sparse.walk_shape``: L lanes an
 entry, TPL topics a lane) at the main paths' topic counts (k = 20 sparse, kp =
@@ -286,6 +296,9 @@ WIDE_BLOCK_BYTES = 1 << 30  # plain_pass_blocked: gathered rows a block
 # phase 22: the init drawn on the card at the cell nytimes-k1000.fit-wide's
 # documents, words and topics
 MT_SHAPE, MT_SEED = (300_000, 102_660, 1_000), 2_400_220_001
+NMF_CELL, NMF_CORPUS_SEED, NMF_CALL_SEED = ("nytimes-enstop-nmf-k20.ensemble-nmf",
+                                           2_400_230_001, 2_400_230_002)
+NMF_RUNS = (0, 15)  # phase 23: the runs held to the float64 reference
 
 
 def check(ok, what):
@@ -1938,9 +1951,90 @@ def mt_init_phase(smi, totals):
             {"mt_uniform": bound(20 * values, 0)})
 
 
+def nmf_scale_phase(smi, totals):
+    """Phase 23: ``EnsembleTopics(n_components=20, model="nmf")`` at the corpus
+    of the cell ``nytimes-enstop-nmf-k20.ensemble-nmf`` (the whole UCI NYTimes
+    shape, 69.7 M nonzeros) through its normal path: 16 bootstrap runs of 200
+    KL updates on the sparse passes, the combine, the 200-update embedding.
+    Its launches and its trace's NMF spans and counters; runs 0 and 15 and
+    the embedding against ``benchmark/reference/ensemble_nmf.py`` (float64 on
+    the card, the same resample and start) by the cell's limits; the
+    SHA-256 digests of ``components_`` and ``embedding_``."""
+    import hashlib
+
+    import enstop_torch
+    from enstop_torch.ops import cuda_em, em
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "benchmark"))
+    import harness
+    import inputs
+    from reference import compare, ensemble_nmf
+
+    t_phase = time.perf_counter()
+    cell = harness.find_cell(NMF_CELL)
+    k = int(cell.config["n_components"])
+    X = inputs.make_corpus(cell, NMF_CORPUS_SEED, "cuda")["train"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(cuda_em, em)
+    t0 = time.perf_counter()
+    model = enstop_torch.EnsembleTopics(n_components=k, model="nmf",
+                                        random_state=NMF_CALL_SEED, device="cuda").fit(X)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_counts("phase 23 NMF ensemble", ("word_pass", "doc_pass"), cuda_em, em,
+                           totals)
+    trace = model.fit_info_["trace"]
+    spans = {}
+    for s in trace["spans"]:
+        spans[s["name"]] = spans.get(s["name"], 0.0) + s["end"] - s["start"]
+    names = [s["name"] for s in trace["spans"]]
+    counters = trace["counters"]
+    check(launches["word_pass"] == 16 * 200 and launches["doc_pass"] == 16 * 200 + 200,
+          "each run's 200 updates ran both passes, the embedding 200 doc passes")
+    check(all(names.count(n) == 16 for n in ("runs.resample", "runs.stage", "runs.mu"))
+          and names.count("refit.stage") == names.count("refit.mu") == 1
+          and counters.get("runs") == 16 and counters.get("mu_steps") == 16 * 200
+          and counters.get("refit_mu_steps") == 200,
+          "the NMF call's trace holds its spans and counters")
+    stack = torch.as_tensor(model.topic_stack_).cpu()
+    limits = cell.traffic["limits"]
+    gaps = {}
+    t0 = time.perf_counter()
+    for i in NMF_RUNS:
+        H = ensemble_nmf.run(X, k, NMF_CALL_SEED, i, "cuda")[1]
+        row = compare.row_l1(stack[i * k:(i + 1) * k].numpy(), ensemble_nmf.topics(H))
+        gaps["run_wz_l1_max"] = max(gaps.get("run_wz_l1_max", 0.0), float(row.max()))
+        gaps["run_wz_l1_mean"] = max(gaps.get("run_wz_l1_mean", 0.0), float(row.mean()))
+    W = ensemble_nmf.embedding(X, model.components_, NMF_CALL_SEED, "cuda")
+    row = ensemble_nmf.relative_row_l1(model.embedding_, W)
+    gaps.update(refit_zd_l1_max=float(row.max()), refit_zd_l1_mean=float(row.mean()))
+    ref_wall = time.perf_counter() - t0
+    digests = {name: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+               for name, a in (("components_", model.components_),
+                               ("embedding_", model.embedding_))}
+    print(f"phase 23 NMF ensemble at the cell's corpus ({X.shape[0]} x {X.shape[1]}, nnz "
+          f"{X.nnz}), k = {k}, on {smi}: fit {wall:.3f} s wall, n_components_ "
+          f"{model.n_components_}, device peak {peak:.3f} GiB; spans (s) "
+          f"{json.dumps({n: round(v, 4) for n, v in spans.items()})}; counters "
+          f"{json.dumps(counters)}")
+    print(f"  runs {list(NMF_RUNS)} and the embedding against the float64 reference "
+          f"({ref_wall:.1f} s): {json.dumps(gaps)}; the cell's limits "
+          f"{json.dumps({n: limits[n] for n in gaps})}; digests {json.dumps(digests)}")
+    check(all(gaps[n] <= limits[n] for n in gaps),
+          "the NMF runs and embedding lie within the cell's limits of the float64 reference")
+    del model, stack, X
+    torch.cuda.empty_cache()
+    print(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    only = sys.argv[1:] == ["--phase", "23"]
+    if sys.argv[1:] and not only:
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 23]")
     import enstop_torch
     check(Path(enstop_torch.__file__).resolve().parents[1] == Path(__file__).resolve().parent,
           "enstop_torch is imported from the checkout that holds this script")
@@ -2020,6 +2114,10 @@ def main():
         print(f"phase 1 build: mt_uniform built (nvcc {build['seconds']:.2f} s); registers, "
               f"spill store bytes by kernel {json.dumps(ptxas_instances(build['report']))}")
     print(f"  all built and loaded in {time.perf_counter() - t0:.2f} s, in parallel")
+    if only:
+        nmf_scale_phase(smi, {name: 0 for name in cuda_em.LAUNCHES})
+        print(json.dumps({"ok": True, "phases": [1, 23]}))
+        return
 
     # -- phase 2: each dense kernel against its plain version -----------------
     rng = np.random.RandomState(0)
@@ -2610,6 +2708,7 @@ def main():
         table.update(part)
     for table, part in zip((worst, timing, bounds), mt_init_phase(smi, totals)):
         table.update(part)
+    nmf_scale_phase(smi, totals)
 
     print(json.dumps({"kernels": [
         {"name": f"{Path(source).stem}_{name}", "route": "cuda", "source": source,

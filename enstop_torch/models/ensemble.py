@@ -57,7 +57,7 @@ from ..ops.data import K_MULTIPLE, _is_staged, pad_factors, pad_vector, round_up
 from ..ops.driver import _staged, plsa_fit, plsa_refit, prepare_counts, resolve_device
 from ..ops.em import _TINY, _rownorm
 from ..ops.init import plsa_init
-from ..ops.nmf import nmf_cd, nmf_fit_mu
+from ..ops.nmf import _fit_mu, nmf_cd
 from ..parallel import mesh as mesh_lib
 from ..profiling import count, is_open, request, span
 from ..utils import _check_sample_weight, check_random_state, normalized
@@ -67,6 +67,7 @@ __all__ = ["EnsembleTopics", "ensemble_fit", "ensemble_of_topics", "plsa_topics"
            "nmf_topics", "resolve_parallelism"]
 
 PARALLELISM = ("auto", "weights", "sharded", "resample", "none", "joblib", "dask")
+_NMF_ITER = 200  # the multiplicative updates of an NMF run and of the NMF embedding
 
 
 def _check_model(model):
@@ -115,27 +116,33 @@ def nmf_topics(X, k, **kwargs):
     on ``device``; ``solver="cd"`` the host coordinate descent with
     scikit-learn's ``NMF(alpha_W=alpha / n_features, alpha_H=alpha /
     n_samples)`` scaling, which puts the reference's unscaled ``alpha`` on
-    both factors' L2 terms."""
+    both factors' L2 terms.
+
+    Inside an open request the run adds the spans ``runs.resample`` (the
+    host's row resample) and, with ``solver="mu"``, ``runs.stage`` and
+    ``runs.mu`` (:func:`~enstop_torch.ops.nmf._fit_mu`), and counts
+    ``runs`` (1) and ``mu_steps`` (its multiplicative updates)."""
     A = X.tocsr()
-    if kwargs.get("bootstrap", True):
-        rng = check_random_state(kwargs.get("random_state", None))
-        B = A[rng.randint(0, A.shape[0], size=A.shape[0])]
-    else:
-        B = A
+    with span("runs.resample"):
+        if kwargs.get("bootstrap", True):
+            rng = check_random_state(kwargs.get("random_state", None))
+            B = A[rng.randint(0, A.shape[0], size=A.shape[0])]
+        else:
+            B = A
+    count("runs")
     init = kwargs.get("init", "nndsvd")
     alpha = float(kwargs.get("alpha", 0.0))
     if kwargs.get("solver", "mu") == "cd":
         _, topics, _ = nmf_cd(B, k, init=init, l2_reg=alpha,
                               random_state=kwargs.get("random_state", None))
     else:
-        _, topics = nmf_fit_mu(
-            B, k,
-            beta_loss=kwargs.get("beta_loss", 1),
-            init="nndsvd" if isinstance(init, (tuple, list)) else init,
-            alpha=alpha,
-            random_state=kwargs.get("random_state", None),
-            device=kwargs.get("device", "cuda"),
-        )
+        _, topics = _fit_mu(
+            B, k, beta_loss=kwargs.get("beta_loss", 1), n_iter=_NMF_ITER,
+            init="nndsvd" if isinstance(init, (tuple, list)) else init, update_H=True,
+            H_init=None, alpha=alpha, l1_ratio=0.0,
+            random_state=kwargs.get("random_state", None), device=kwargs.get("device", "cuda"),
+            where="runs")
+        count("mu_steps", _NMF_ITER)
     return normalized(np.asarray(topics, dtype=np.float64), axis=1).astype(np.float32)
 
 
@@ -718,9 +725,11 @@ def _ensemble_fit(X, estimated_n_topics, model, init, min_samples, min_cluster_s
 
         with span("refit") as refit:
             if model == "nmf":
-                doc_vectors, _ = nmf_fit_mu(X, stable_topics.shape[0], beta_loss=beta_loss,
-                                            H_init=stable_topics, update_H=False,
-                                            random_state=random_state, device=dev)
+                doc_vectors, _ = _fit_mu(
+                    X, stable_topics.shape[0], beta_loss=beta_loss, n_iter=_NMF_ITER,
+                    init="nndsvd", update_H=False, H_init=stable_topics, alpha=0.0,
+                    l1_ratio=0.0, random_state=random_state, device=dev, where="refit")
+                count("refit_mu_steps", _NMF_ITER)
             else:
                 refit_input = prepared if prepared is not None else X
                 doc_vectors = plsa_refit(

@@ -30,6 +30,7 @@ import scipy.sparse as sp
 import torch
 
 from ..cluster.distances import full_fp32_matmul
+from ..profiling import count, span
 from ..utils import check_random_state
 from .cuda_sparse import doc_pass, word_pass
 from .data import resolve_device, ship_coo
@@ -185,29 +186,50 @@ def nmf_fit_mu(X, k, beta_loss=1, n_iter=200, init="nndsvd", update_H=True, H_in
     ``l1_ratio`` follow the reference's (pre-1.0 scikit-learn) semantics:
     one unscaled constant for both factors, ``l1 = alpha * l1_ratio`` and
     ``l2 = alpha * (1 - l1_ratio)`` in the update denominators.
+
+    Inside an open request (:mod:`enstop_torch.profiling`) the fit is two
+    spans, ``nmf.stage`` and ``nmf.mu``, as :func:`_fit_mu` opens them.
     """
+    return _fit_mu(X, k, beta_loss, n_iter, init, update_H, H_init, alpha, l1_ratio,
+                   random_state, device, "nmf")
+
+
+def _fit_mu(X, k, beta_loss, n_iter, init, update_H, H_init, alpha, l1_ratio, random_state,
+            device, where):
+    """:func:`nmf_fit_mu` with its spans named ``<where>.stage`` (the start
+    drawn on the host and copied up, and the corpus staged: ``prepare_sell``
+    for KL, the dense scatter for Frobenius; it ends waiting for the device)
+    and ``<where>.mu`` (the ``n_iter`` updates up to the factors read back).
+    The ensemble names them ``runs.*`` for its bootstrap runs and ``refit.*``
+    for its embedding. No span or counter runs per update."""
     rng = check_random_state(random_state)
     dev = resolve_device(device)
     n, m = X.shape
-    if H_init is not None:
-        H0 = np.asarray(H_init, dtype=np.float32)
-        W0 = np.abs(rng.rand(n, k))
-    elif isinstance(init, (tuple, list)):
-        W0, H0 = init
-    elif init == "nndsvd":
-        W0, H0 = nndsvd_init(X, k, rng)
-        # multiplicative updates cannot leave an exact zero
-        W0, H0 = np.maximum(W0, 1e-8), np.maximum(H0, 1e-8)
-    else:
-        W0, H0 = np.abs(rng.rand(n, k)), np.abs(rng.rand(k, m))
-    W = torch.from_numpy(np.array(W0, dtype=np.float32)).to(dev)
-    H = torch.from_numpy(np.array(H0, dtype=np.float32)).to(dev)
-    if beta_loss in (1, "kullback-leibler"):
-        Xd, step = prepare_sell(X, standardize=False, device=dev), _mu_step_kl
-    else:
-        Xd, step = _dense_on(X, dev), _mu_step_frobenius
+    with span(f"{where}.stage"):
+        if H_init is not None:
+            H0 = np.asarray(H_init, dtype=np.float32)
+            W0 = np.abs(rng.rand(n, k))
+        elif isinstance(init, (tuple, list)):
+            W0, H0 = init
+        elif init == "nndsvd":
+            W0, H0 = nndsvd_init(X, k, rng)
+            # multiplicative updates cannot leave an exact zero
+            W0, H0 = np.maximum(W0, 1e-8), np.maximum(H0, 1e-8)
+        else:
+            W0, H0 = np.abs(rng.rand(n, k)), np.abs(rng.rand(k, m))
+        W = torch.from_numpy(np.array(W0, dtype=np.float32)).to(dev)
+        H = torch.from_numpy(np.array(H0, dtype=np.float32)).to(dev)
+        count("host_syncs", 2)  # each copy from pageable memory waits
+        if beta_loss in (1, "kullback-leibler"):
+            Xd, step = prepare_sell(X, standardize=False, device=dev), _mu_step_kl
+        else:
+            Xd, step = _dense_on(X, dev), _mu_step_frobenius
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     l1_reg = float(alpha) * float(l1_ratio)
     l2_reg = float(alpha) * (1.0 - float(l1_ratio))
-    for _ in range(int(n_iter)):
-        W, H = step(Xd, W, H, l1_reg, l2_reg, bool(update_H))
-    return W.cpu().numpy(), H.cpu().numpy()
+    with span(f"{where}.mu"):
+        for _ in range(int(n_iter)):
+            W, H = step(Xd, W, H, l1_reg, l2_reg, bool(update_H))
+        count("host_syncs", 2)  # both factors read back
+        return W.cpu().numpy(), H.cpu().numpy()

@@ -63,7 +63,15 @@ The spans of the program, each under its parent, in order:
                 sum of their EM steps, for the device fan-outs, and
                 ``batched_run_steps``, the run-steps the weights fan-out
                 took in batched launches: 0 where its runs go one after
-                another)
+                another); with ``model="nmf"`` each run is three spans
+                and counts ``runs`` (1) and ``mu_steps`` (its
+                multiplicative updates, 200):
+    ``runs.resample``  the host's row resample of the corpus
+    ``runs.stage``     the run's start drawn on the host and copied up, and
+                       the resample staged (``prepare_sell``, with
+                       ``stage.copy``, ``stage.coo``, ``stage.layout``);
+                       it ends waiting for the device
+    ``runs.mu``        the updates, up to the factors read back
   ``combine``   the stable topics (counter ``stable_topics``):
     ``combine.distances``  the distance matrix of the runs' topics
     ``combine.layout``     the UMAP layout (``"hellinger_umap"`` only;
@@ -72,12 +80,16 @@ The spans of the program, each under its parent, in order:
     ``combine.cluster``    HDBSCAN
     ``combine.merge``      each cluster merged into its stable topic
   ``refit``     the documents refitted against the stable topics (the
-                spans of ``plsa_refit``); the lengths of ``staging``,
+                spans of ``plsa_refit``; with ``model="nmf"`` the spans
+                ``refit.stage`` and ``refit.mu``, as ``runs.stage`` and
+                ``runs.mu``, and the counter ``refit_mu_steps``, 200); the
+                lengths of ``staging``,
                 ``runs``, ``combine`` and ``refit`` are also
                 ``ensemble_fit.last_timings``
 
 ``plsa_fit``, ``plsa_refit`` and ``ensemble_fit`` called inside an open
-request add their spans to it. The counter ``host_syncs`` counts the points at which a fit on
+request add their spans to it; ``ops.nmf.nmf_fit_mu`` adds ``nmf.stage``
+and ``nmf.mu``. The counter ``host_syncs`` counts the points at which a fit on
 a card makes the host wait for the device: each copy between host and
 device (pageable memory: the copy waits for the stream), each value read
 back (a test point's log-likelihood, an index bound, a segment count) and
@@ -87,7 +99,7 @@ path runs only on the card it counts there alone: the UMAP layout's epochs
 on the device, and the random init drawn there (``ops.init._uniform_rows``:
 one wait, the stream's state read back, where the host's init copies its
 two factors up; a refit's copies its topics up besides). No span runs per
-EM step, and no counter but ``wide_passes``: the sparse passes past 256
+EM step or multiplicative update, and no counter but ``wide_passes``: the sparse passes past 256
 topics (``ops.cuda_sparse``'s wide walk, about 0.1 s a pass at k = 1,000 on
 the whole UCI NYTimes corpus), one a pass, counted the same on any device
 and never at 256 topics or fewer. The counters ``coo_as_is`` and ``coo_canonicalized`` count the
